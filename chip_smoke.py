@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (hpclinalg_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It builds the hand-written kernels from
+hpclinalg_torch/csrc, then:
+  1. holds K1 (DIA SpMV) against its plain twin on the 1000^2 Laplacian
+     (n = 10^6) in f32 and f64 at S = 1 and S = 4 stacked shards, and on a
+     wide-span pattern that takes the kernel's second variant;
+  2. holds K2 (ELL SpMV + COO tail) against its twin on the random
+     10^6 x 8 nnz/row matrix in f32 and f64 and on a power-law matrix with a
+     nonempty tail, and its gather-only mode bit for bit at 8*10^6 slots;
+  3. drives the main path through the public API in f64 — A @ x, 200 CG
+     steps, A @ x on the random matrix, ldlt/solve/lu on the host engine —
+     with the kernels' launch counters reset just before and read just after;
+  4. times each kernel against its twin (median of 20, CUDA events, L2
+     flushed before each launch), the CG step (wall and host enqueue time,
+     and the card's busy share from a torch.profiler trace) and the build.
+
+Any failed check raises, so the exit code is nonzero and the last line is
+not printed. With no CUDA device it raises at once. The line before the
+last is the kernels' JSON record; the last is the device record.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+SEED = 0
+N = 1_000_000          # rows of the SpMV matrices (laplace2d(K): N = K^2)
+K = 1000
+D = 8_000_000          # destinations of the gather-only check
+K1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+K2_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+    print(f"  ok: {what}", flush=True)
+
+
+def laplace2d(k):
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    I = sp.eye(k)
+    return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
+
+
+def random_8(n, seed):
+    """The random n x n, 8 entries per row matrix of bench.py."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), 8)
+    cols = rng.integers(0, n, size=n * 8)
+    A = sp.csr_matrix((rng.standard_normal(n * 8), (rows, cols)), shape=(n, n))
+    A.sum_duplicates()
+    return A
+
+
+def power_law(n, seed):
+    """Zipf(2) row lengths capped at 10^4 (mean near 6): the long rows
+    overflow the ELL width into the COO tail."""
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.zipf(2.0, n), 10_000)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    A = sp.csr_matrix((rng.standard_normal(indptr[-1]),
+                       rng.integers(0, n, indptr[-1]), indptr), shape=(n, n))
+    A.sum_duplicates()
+    return A
+
+
+def close(a, b, rtol):
+    """max |a - b| <= rtol * max |b|; returns (ok, max_abs_err)."""
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return err <= rtol * max(scale, 1e-300), err
+
+
+class Timer:
+    """Median kernel time over 20 launches, CUDA events around each launch,
+    a 256 MiB read before each so L2 (50 MB) starts cold. (A write would
+    leave dirty lines whose write-back lands inside the timed launch.)"""
+
+    def __init__(self, dev):
+        self.flush = torch.ones(64 << 20, dtype=torch.float32, device=dev)
+
+    def ms(self, fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        out = []
+        for _ in range(reps):
+            self.flush.sum()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return float(np.median(out))
+
+
+def device_us(fn):
+    """Device time of the kernels and copies that ``fn`` launches, from a
+    torch.profiler trace: the union of their intervals in microseconds, and
+    how many there were."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
+    import hpclinalg_torch as ht
+    from hpclinalg_torch.ops import cuda_build, cuda_dia, cuda_ell
+    from hpclinalg_torch.ops import spmv as spmv_mod
+    from hpclinalg_torch.solver import native
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    timer = Timer(dev)
+    times = {}
+
+    # ---- build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_dia._lib()
+    cuda_ell._lib()
+    times["build_kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(native.load_mf() is not None and native.load_sym() is not None
+          and native.load_ell() is not None, "host C++ engines built")
+    times["build_native_s"] = time.perf_counter() - t0
+    print(f"build: nvcc {cuda_build.build_seconds} s; kernels "
+          f"{times['build_kernels_s']:.2f} s; host engines "
+          f"{times['build_native_s']:.2f} s")
+
+    rng = np.random.default_rng(SEED)
+    n = N
+    L1000 = laplace2d(K)
+    xh = rng.standard_normal(n)
+    errs = {"dia": 0.0, "ell": 0.0, "gather": 0.0}
+    bench = {}
+
+    def engine_inputs(A, x):
+        plan = spmv_mod.get_spmv_plan(A, x)
+        ex = plan.exchange
+        g, pad_to = (x.data, ex.out_pad) if ex.is_identity \
+            else (ex.apply(x.data), 0)
+        return plan, g, pad_to
+
+    # ---- phase 1: K1 against its twin -------------------------------------
+    print("phase 1: K1 dia_spmv against dia_spmv_plain", flush=True)
+    for S in (1, 4):
+        for dt, npdt in ((torch.float32, np.float32), (torch.float64, np.float64)):
+            be = ht.backend_auto(S, dtype=npdt, device=dev)
+            A = ht.DistSparseMatrix.from_scipy(L1000, be)
+            x = ht.DistVector.from_global(xh, be)
+            plan, g, pad_to = engine_inputs(A, x)
+            check(plan.offsets is not None,
+                  f"laplace2d({K}) S={S} takes the DIA engine "
+                  f"({len(plan.offsets or ())} offsets in the gathered space)")
+            dval = spmv_mod._dia_values(A, plan)
+            args = (dval, g, plan.offsets, plan.bias_lo, plan.bias_hi, pad_to)
+            yk = cuda_dia.dia_spmv(*args)
+            yp = cuda_dia.dia_spmv_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = close(yk, yp, K1_RTOL[dt])
+            variant = cuda_dia.dia_variant(plan.offsets, dt)
+            check(ok and variant == 0, f"K1 S={S} {dt} variant={variant} "
+                  f"max_abs_err={err:.3e} (rtol {K1_RTOL[dt]:g} of max|y|)")
+            errs["dia"] = max(errs["dia"], err)
+            yh = (A @ x).to_numpy()
+            ok, err = close(torch.from_numpy(yh),
+                            torch.from_numpy(L1000 @ xh.astype(npdt)),
+                            K1_RTOL[dt])
+            check(ok, f"A @ x S={S} {dt} against scipy, max_abs_err={err:.3e}")
+            bench[("dia", S, dt)] = (lambda a=args: cuda_dia.dia_spmv(*a),
+                                     lambda a=args: cuda_dia.dia_spmv_plain(*a))
+    w = 3 * n // 10
+    offs = (-w, 0, w)
+    W3 = sp.diags([np.full(n - w, 0.5), np.full(n, 2.0),
+                   np.full(n - w, -0.5)], offs, format="csr")
+    for dt, npdt in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        be = ht.backend_auto(1, dtype=npdt, device=dev)
+        A = ht.DistSparseMatrix.from_scipy(W3, be)
+        x = ht.DistVector.from_global(xh, be)
+        plan, g, pad_to = engine_inputs(A, x)
+        check(plan.offsets == offs, "wide-span pattern takes the DIA engine")
+        args = (spmv_mod._dia_values(A, plan), g, plan.offsets, plan.bias_lo,
+                plan.bias_hi, pad_to)
+        yk = cuda_dia.dia_spmv(*args)
+        yp = cuda_dia.dia_spmv_plain(*args)
+        torch.cuda.synchronize()
+        ok, err = close(yk, yp, K1_RTOL[dt])
+        variant = cuda_dia.dia_variant(offs, dt)
+        check(ok and variant == 1, f"K1 wide span {dt} variant={variant} "
+              f"max_abs_err={err:.3e}")
+        errs["dia"] = max(errs["dia"], err)
+        bench[("dia_wide", 1, dt)] = (lambda a=args: cuda_dia.dia_spmv(*a),
+                                      lambda a=args: cuda_dia.dia_spmv_plain(*a))
+
+    # ---- phase 2: K2 against its twin -------------------------------------
+    print("phase 2: K2 ell_spmv and gather against their twins", flush=True)
+    R8 = random_8(n, SEED + 1)
+    PL = power_law(n, SEED + 2)
+    for name, M, dts in (("random8", R8, (torch.float32, torch.float64)),
+                         ("power_law", PL, (torch.float32, torch.float64))):
+        for dt in dts:
+            npdt = np.float32 if dt == torch.float32 else np.float64
+            be = ht.backend_auto(1, dtype=npdt, device=dev)
+            A = ht.DistSparseMatrix.from_scipy(M, be)
+            x = ht.DistVector.from_global(xh, be)
+            plan, g, pad_to = engine_inputs(A, x)
+            check(plan.ell, f"{name} takes the ELL engine (W={plan.ell_W}, "
+                  f"Tpad={plan.ell_Tpad})")
+            if name == "power_law":
+                check(plan.ell_Tpad > 0, "power-law matrix has a COO tail")
+            vals, tvals = spmv_mod._ell_values(A, plan)
+            tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
+                if plan.ell_Tpad else None
+            args = (vals, plan.ell_cols, g, tail, pad_to)
+            yk = cuda_ell.ell_spmv(*args)
+            yp = cuda_ell.ell_spmv_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = close(yk, yp, K2_RTOL[dt])
+            check(ok, f"K2 {name} {dt} max_abs_err={err:.3e} "
+                  f"(rtol {K2_RTOL[dt]:g} of max|y|; the tail's atomics "
+                  "sum in no fixed order)")
+            errs["ell"] = max(errs["ell"], err)
+            bench[(name, 1, dt)] = (lambda a=args: cuda_ell.ell_spmv(*a),
+                                    lambda a=args: cuda_ell.ell_spmv_plain(*a))
+    src_h = rng.integers(0, n, D).astype(np.int32)
+    src_h[rng.random(D) < 0.03] = -1
+    cuda_ell.check_index("gather src", src_h, n, dead_below_zero=True)
+    src = torch.from_numpy(src_h).to(dev)[None]
+    for dt in (torch.float32, torch.float64):
+        xg = torch.from_numpy(xh).to(dev, dt)[None]
+        xe = cuda_ell.gather(xg, src)
+        xp = cuda_ell.gather_plain(xg, src)
+        torch.cuda.synchronize()
+        err = float((xe - xp).abs().max())
+        errs["gather"] = max(errs["gather"], err)
+        check(torch.equal(xe, xp), f"K2 gather mode {dt} at {D} slots is "
+              f"bit-exact (max_abs_err={err:.3e})")
+        bench[("gather", 1, dt)] = (lambda a=(xg, src): cuda_ell.gather(*a),
+                                    lambda a=(xg, src): cuda_ell.gather_plain(*a))
+
+    # ---- phase 3: the main path through the public API, f64 ----------------
+    print("phase 3: main path (public API, f64)", flush=True)
+    be = ht.backend_auto(1, dtype=np.float64, device=dev)
+    A = ht.DistSparseMatrix.from_scipy(L1000, be)
+    Ar = ht.DistSparseMatrix.from_scipy(R8, be)
+    bh = np.random.default_rng(SEED + 3).standard_normal(n)
+    b = ht.DistVector.from_global(bh, be)
+    xv = ht.DistVector.from_global(xh, be)
+
+    def cg(A, b, steps):
+        x = ht.DistVector.zeros(b.n, b.backend)
+        r, p = b, b
+        for _ in range(steps):
+            Ap = A @ p
+            rr = r.dot(r)
+            alpha = rr / p.dot(Ap)
+            x = x + alpha * p
+            r2 = r - alpha * Ap
+            p = r2 + (r2.dot(r2) / rr) * p
+            r = r2
+        return x, r
+
+    A @ xv, Ar @ xv   # plan builds are set-up, outside the counted run
+    cg(A, b, 3)       # so is the first use of cuBLAS (the dots) and others
+    torch.cuda.synchronize()
+
+    for f in (cuda_dia.dia_spmv, cuda_ell.ell_spmv, cuda_ell.gather):
+        f.launches = 0
+    y = (A @ xv).to_numpy()
+    ok, err = close(torch.from_numpy(y), torch.from_numpy(L1000 @ xh), 1e-12)
+    check(ok, f"A @ x laplace2d({K}) against scipy, max_abs_err={err:.3e}")
+    c0 = cuda_dia.dia_spmv.launches
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    xk, rk = cg(A, b, 200)
+    times["cg_step_host_enqueue_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    ev1.record()
+    torch.cuda.synchronize()
+    times["cg_step_ms"] = ev0.elapsed_time(ev1) / 200
+    check(cuda_dia.dia_spmv.launches - c0 >= 200,
+          f"200 CG steps launched K1 {cuda_dia.dia_spmv.launches - c0} times")
+    rn, bn = float(rk.norm()), float(np.linalg.norm(bh))
+    check(np.isfinite(rn) and rn < bn, f"CG residual fell: {rn:.4e} < {bn:.4e}")
+    yr = (Ar @ xv).to_numpy()
+    ok, err = close(torch.from_numpy(yr), torch.from_numpy(R8 @ xh), 1e-12)
+    check(ok, f"A @ x random {n} x 8 against scipy, max_abs_err={err:.3e}")
+    check(cuda_ell.ell_spmv.launches > 0 and cuda_ell.gather.launches > 0,
+          f"random A @ x launched K2 {cuda_ell.ell_spmv.launches} times and "
+          f"its gather mode {cuda_ell.gather.launches} times")
+    L100 = laplace2d(100)
+    A100 = ht.DistSparseMatrix.from_scipy(L100, be)
+    b100h = np.random.default_rng(SEED + 4).standard_normal(L100.shape[0])
+    b100 = ht.DistVector.from_global(b100h, be)
+    t0 = time.perf_counter()
+    F = ht.ldlt(A100)
+    x100 = F.solve(b100).to_numpy()
+    times["ldlt_factor_solve_first_s"] = time.perf_counter() - t0
+    res = np.linalg.norm(L100 @ x100 - b100h) / np.linalg.norm(b100h)
+    check(F.native is not None and res <= 1e-12,
+          f"ldlt(laplace2d(100)).solve: native engine, residual {res:.2e}")
+    ht.clear_plan_cache("backslash")
+    ht.solve(A100, b100)
+    cache = ht.BackslashCache._cache()
+    F1 = next(iter(cache.values()))
+    L100b = (2.0 * L100 + sp.eye(L100.shape[0])).tocsr()
+    A100b = A100.with_values(ht.DistSparseMatrix.from_scipy(L100b, be).nzval)
+    xb = ht.solve(A100b, b100).to_numpy()
+    res = np.linalg.norm(L100b @ xb - b100h) / np.linalg.norm(b100h)
+    check(len(cache) == 1 and next(iter(cache.values())) is F1
+          and F1.A is A100b and res <= 1e-12,
+          f"second solve with new values hit the backslash cache "
+          f"(residual {res:.2e})")
+    # unsymmetric values on the Laplacian's own pattern keep the factor sparse
+    Lu = L100.copy()
+    Lu.data = Lu.data * (1.0 + 0.2 * np.random.default_rng(SEED + 5)
+                         .random(Lu.nnz))
+    xu = ht.lu(ht.DistSparseMatrix.from_scipy(Lu, be)).solve(b100).to_numpy()
+    res = np.linalg.norm(Lu @ xu - b100h) / np.linalg.norm(b100h)
+    check(res <= 1e-10, f"lu on an unsymmetric perturbation: residual {res:.2e}")
+    launches = {"dia": cuda_dia.dia_spmv.launches,
+                "ell": cuda_ell.ell_spmv.launches,
+                "gather": cuda_ell.gather.launches}
+    print(f"main-path launches: {launches}")
+
+    # the same 200 CG steps with the twin in place of K1 (a comparison run)
+    orig = spmv_mod.dia_spmv
+    spmv_mod.dia_spmv = cuda_dia.dia_spmv_plain
+    try:
+        xp, rp = cg(A, b, 200)
+    finally:
+        spmv_mod.dia_spmv = orig
+    torch.cuda.synchronize()
+    ok, err = close(xk.data, xp.data, 1e-9)
+    check(ok, f"200 CG iterates with K1 equal those with the twin to rtol "
+          f"1e-9 (max_abs_err={err:.3e})")
+
+    # ---- phase 4: times ----------------------------------------------------
+    print(f"phase 4: times on {card} (median of 20, L2 flushed)", flush=True)
+    kt = {}
+    for key, (fk, fp) in bench.items():
+        a, b_ = timer.ms(fk), timer.ms(fp)
+        b2, a2 = timer.ms(fp), timer.ms(fk)
+        kt[key] = (min(a, a2), min(b_, b2))
+        name, S, dt = key
+        print(f"  {name} S={S} {str(dt).replace('torch.', '')}: kernel "
+              f"{kt[key][0]:.4f} ms, plain {kt[key][1]:.4f} ms  [{card}]")
+    busy_us, nspans = device_us(lambda: cg(A, b, 20))
+    if nspans:
+        times["cg_step_device_us"] = busy_us / 20
+        times["cg_step_device_busy_share"] = \
+            times["cg_step_device_us"] / (1e3 * times["cg_step_ms"])
+        print(f"  CG step device activity: {nspans / 20:g} kernels/copies "
+              "per step (torch.profiler, 20 steps)")
+    else:
+        print("  CG step device time: not measured (the profiler traced no "
+              "device activity)")
+    for k, v in times.items():
+        print(f"  {k}: {v:.4f}  [{card}]")
+
+    f64 = torch.float64
+    record = {"kernels": [
+        {"name": "dia_spmv (K1)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/dia_spmv.cu",
+         "replaces": "hpclinalg/ops/pallas_dia.py:60",
+         "launches": launches["dia"], "max_abs_err": errs["dia"],
+         "ms": kt[("dia", 1, f64)][0], "plain_ms": kt[("dia", 1, f64)][1]},
+        {"name": "ell_spmv (K2)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/ell_spmv.cu",
+         "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
+         "launches": launches["ell"], "max_abs_err": errs["ell"],
+         "ms": kt[("random8", 1, f64)][0],
+         "plain_ms": kt[("random8", 1, f64)][1]},
+        {"name": "gather (K2 gather-only mode)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/ell_spmv.cu",
+         "replaces": "hpclinalg/ops/pallas_shuffle.py:548",
+         "launches": launches["gather"], "max_abs_err": errs["gather"],
+         "ms": kt[("gather", 1, f64)][0],
+         "plain_ms": kt[("gather", 1, f64)][1]},
+    ]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

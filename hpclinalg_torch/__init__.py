@@ -1,0 +1,26 @@
+"""hpclinalg_torch — the PyTorch/CUDA port of hpclinalg.
+
+Row-partitioned vectors and CSR sparse matrices stored as stacked-shard
+tensors on one device, memoized exchange and SpMV plans, hand-written
+Hopper kernels for the DIA and ELL SpMV engines (``csrc/``), and the host
+C++ multifrontal direct solver. The JAX package ``hpclinalg`` is the
+reference it is tested against; this package never imports it or JAX.
+"""
+
+from .backend import Backend, backend_auto, backends_compatible
+from .cache import cache_sizes, check_cache_sizes, clear_plan_cache
+from .hashing import partition_hash, sparse_structural_hash
+from .partition import uniform_partition
+from .vector import DistVector
+from .sparse import DistSparseMatrix
+from .solver.api import BackslashCache, Factorization, Symmetric, ldlt, lu, solve
+from .utils.convert import from_reference
+
+__all__ = [
+    "Backend", "backend_auto", "backends_compatible",
+    "cache_sizes", "check_cache_sizes", "clear_plan_cache",
+    "partition_hash", "sparse_structural_hash", "uniform_partition",
+    "DistVector", "DistSparseMatrix",
+    "BackslashCache", "Factorization", "Symmetric", "ldlt", "lu", "solve",
+    "from_reference",
+]

@@ -1,0 +1,102 @@
+"""Backend: the device/shard-count/dtype configuration object.
+
+PyTorch counterpart of the JAX package's ``Backend``. The 1-D device mesh
+becomes one ``torch.device`` holding all S shards stacked in one tensor of
+shape (S, L, ...): the shard axis is a batch axis, and what the JAX package
+moves with collectives is a gather plus a scatter on that tensor.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def torch_dtype(dt) -> torch.dtype:
+    """The torch dtype for a numpy or torch dtype."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    return torch.from_numpy(np.zeros(0, np.dtype(dt))).dtype
+
+
+def numpy_dtype(dt) -> np.dtype:
+    """The numpy dtype for a numpy or torch dtype."""
+    if isinstance(dt, torch.dtype):
+        return torch.zeros(0, dtype=dt).numpy().dtype
+    return np.dtype(dt)
+
+
+@dataclass(frozen=True)
+class Backend:
+    """Configuration: device + shard count + element dtype + index dtype.
+    ``nshards`` plays the role of the reference's MPI world size."""
+
+    device: torch.device
+    nshards: int = 1
+    dtype: Any = np.float64
+    index_dtype: Any = np.int32
+
+    def __post_init__(self):
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            # tensors report an indexed device; keep equality checks exact
+            dev = torch.device("cuda", torch.cuda.current_device())
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "dtype", numpy_dtype(self.dtype))
+        object.__setattr__(self, "index_dtype", numpy_dtype(self.index_dtype))
+        if self.nshards <= 0:
+            raise ValueError("nshards must be positive")
+
+    @property
+    def complex_capable(self) -> bool:
+        """Complex dtypes are held natively on every torch device."""
+        return True
+
+    @property
+    def key(self) -> tuple:
+        """Hashable identity for plan-cache keys: a plan holds tensors on
+        one device for one shard count."""
+        return (str(self.device), self.nshards, self.dtype.str,
+                self.index_dtype.str)
+
+    def tensor(self, arr, dtype=None) -> torch.Tensor:
+        """Host array -> tensor on this backend's device. Always a copy:
+        the tensor never aliases the caller's array."""
+        t = torch.from_numpy(np.array(arr))
+        if dtype is not None:
+            t = t.to(torch_dtype(dtype))
+        return t.to(self.device)
+
+
+def resolve_dtype(backend: Backend, src_dtype, dtype) -> np.dtype:
+    """Allocation dtype for container constructors: an explicit ``dtype``
+    wins; otherwise the backend default, promoted to complex when the
+    SOURCE data is complex, so a complex input never silently drops its
+    imaginary part."""
+    if dtype is not None:
+        return numpy_dtype(dtype)
+    dt = backend.dtype
+    src = numpy_dtype(src_dtype)
+    if np.issubdtype(src, np.complexfloating) \
+            and not np.issubdtype(dt, np.complexfloating):
+        dt = np.result_type(src, dt)
+    return dt
+
+
+def backends_compatible(a: Backend, b: Backend) -> bool:
+    """Same device, shard count and index dtype; operands may differ in
+    element dtype."""
+    return (a.device == b.device and a.nshards == b.nshards
+            and a.index_dtype == b.index_dtype)
+
+
+def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
+                 device=None) -> Backend:
+    """Backend on ``device``, by default the current CUDA device when there
+    is one and the CPU otherwise."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return Backend(torch.device(device), nshards, dtype, index_dtype)

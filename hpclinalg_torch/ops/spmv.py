@@ -1,0 +1,361 @@
+"""SpMV: distributed sparse matrix × vector — the hottest path.
+
+Port of the JAX package's ``hpclinalg/ops/spmv.py``. The gather is a cached
+static ExchangePlan delivering ``x[col_indices[s]]`` into each shard's
+gathered buffer; the local engine is chosen per sparsity pattern when the
+plan is built, with the JAX package's rules and thresholds:
+
+  * DIA (stencil) engine: the pattern decomposes into at most
+    ``DIA_MAX_OFFSETS`` diagonals in the gathered index space with at most
+    ``DIA_FILL_FACTOR`` storage blowup; y is O shifted multiply-adds.
+    Kernel K1 (ops/cuda_dia.py, csrc/dia_spmv.cu).
+  * densify: a small general local block (at most ``DENSE_MAX_ELEMS``
+    elements per shard) is stored dense and multiplied with ``torch.bmm``.
+  * ELL(+COO tail) engine for general sparsity: rows padded to width
+    ``W = min(maxlen, max(ELL_MIN_WIDTH, ceil(ELL_WIDTH_MULT * mean)))``;
+    entries past W spill into a COO tail. Kernel K2 (ops/cuda_ell.py,
+    csrc/ell_spmv.cu).
+  * fallback: gather + segment sum (``scatter_add_``), for degenerate
+    patterns with no stored entries.
+
+Every index table is checked on the host when the plan is built
+(``check_index``): an out-of-range index on the device would be a
+device-side fault, and the kernels do not clip. The per-matrix value tables
+(DIA diagonals, dense block, ELL values) are built once per matrix instance
+by one device scatter and cached on it, so repeated products with the same
+matrix (iterative solvers) run scatter-free.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cache import cached_plan
+from ..hashing import partition_hash
+from ..parallel.exchange import ExchangePlan
+from ..solver.native import load_ell
+from .cuda_dia import dia_spmv, pad_trunc
+from .cuda_ell import check_index, ell_spmv
+from .gather import gather_exchange_plan
+
+# DIA engine limits: max distinct offsets, and max storage blowup vs nnz
+DIA_MAX_OFFSETS = 64
+DIA_FILL_FACTOR = 3.0
+# densify engine: per-shard dense block cap (elements)
+DENSE_MAX_ELEMS = 1 << 22
+# ELL engine: rows padded to W = min(max row len, ELL_WIDTH_MULT × mean);
+# overflow entries go to a COO tail
+ELL_WIDTH_MULT = 3.0
+ELL_MIN_WIDTH = 4
+
+
+def _distinct_offsets(offs, Lrow, cap):
+    """Sorted distinct values of ``offs`` (all >= -Lrow) via a presence
+    bitmap — two linear passes instead of a sort. Returns None as soon as
+    the count provably exceeds ``cap`` (a 256k-element sample is probed
+    first: sample-distinct > cap implies total-distinct > cap)."""
+    if not offs.size:
+        return np.zeros(0, np.int64)
+
+    def census(a):
+        bm = np.zeros(Lrow + int(a.max()) + 2, bool)
+        bm[a + Lrow] = True
+        return bm
+
+    if offs.size > (1 << 18):
+        if np.count_nonzero(census(offs[: 1 << 18])) > cap:
+            return None
+    bm = census(offs)
+    if np.count_nonzero(bm) > cap:
+        return None
+    return np.flatnonzero(bm).astype(np.int64) - Lrow
+
+
+class SpMVPlan:
+    """Gather plan + local-engine selection for one (structure, x-partition)."""
+
+    def __init__(self, A, x_partition_hash, exchange: ExchangePlan):
+        st = A.structure
+        be = A.backend
+        self.exchange = exchange
+        self.key = (A.hash, x_partition_hash, be.key)
+        self.st_hash = A.hash
+        self.row_phash = partition_hash(st.row_partition)
+        self.ell = False
+
+        # ---- try the DIA decomposition (host metadata) --------------------
+        # distinct-offset census via a presence bitmap, with a sampled early
+        # exit so random patterns reject before the full offset arrays exist
+        S = be.nshards
+        offsets = set()
+        per_shard = []
+        rejected = False
+        for s in range(S):
+            nl = len(st.indptr[s]) - 1
+            ip = st.indptr[s]
+            if int(st.nnz_local[s]) > (1 << 18):
+                pos = np.arange(1 << 18, dtype=np.int64)
+                rows_smp = np.searchsorted(ip, pos, side="right") - 1
+                offs_smp = st.colval[s][: 1 << 18].astype(np.int64) - rows_smp
+                if _distinct_offsets(offs_smp, st.Lrow,
+                                     DIA_MAX_OFFSETS) is None:
+                    rejected = True
+                    break
+            rows_local = np.repeat(np.arange(nl, dtype=np.int64), np.diff(ip))
+            offs = st.colval[s].astype(np.int64) - rows_local
+            per_shard.append(offs)
+            u = _distinct_offsets(offs, st.Lrow, DIA_MAX_OFFSETS)
+            if u is None:
+                rejected = True
+                break
+            offsets.update(u.tolist())
+            if len(offsets) > DIA_MAX_OFFSETS:
+                rejected = True
+                break
+        if rejected:
+            offsets = set(range(DIA_MAX_OFFSETS + 1))  # force the else arm
+        total_rows = int(np.diff(st.row_partition).sum())
+        if (len(offsets) <= DIA_MAX_OFFSETS and
+                len(offsets) * total_rows <= DIA_FILL_FACTOR * max(st.nnz, 1) + 1024):
+            self.offsets = tuple(sorted(offsets))
+            omap = np.zeros(0, np.int64)
+            O = len(self.offsets)
+            Lrow = st.Lrow
+            scat = np.full((S, st.NNZpad), O * Lrow, dtype=np.int64)  # drop
+            if O:
+                lo = self.offsets[0]
+                omap = np.zeros(self.offsets[-1] - lo + 1, np.int64)
+                omap[np.asarray(self.offsets) - lo] = np.arange(O)
+            for s in range(S):
+                nl = len(st.indptr[s]) - 1
+                rows_local = np.repeat(np.arange(nl, dtype=np.int64),
+                                       np.diff(st.indptr[s]))
+                if len(per_shard[s]):
+                    oidx = omap[per_shard[s] - self.offsets[0]]
+                    scat[s, : st.nnz_local[s]] = oidx * Lrow + rows_local
+            check_index("dia_scatter", scat, O * Lrow, sentinel=O * Lrow)
+            self.dia_scatter = be.tensor(scat)
+            # pad widths so every shifted slice of the gathered buffer is
+            # valid (an all-zero matrix has no offsets and needs no padding)
+            self.bias_lo = max(0, -min(self.offsets)) if self.offsets else 0
+            need_hi = (max(self.offsets) + Lrow - exchange.out_pad) \
+                if self.offsets else 0
+            self.bias_hi = max(0, need_hi)
+            self.densify = False
+        else:
+            self.offsets = None
+            self.densify = st.Lrow * exchange.out_pad <= DENSE_MAX_ELEMS
+            if self.densify:
+                G = exchange.out_pad
+                scat = np.full((S, st.NNZpad), st.Lrow * G, dtype=np.int64)
+                for s in range(S):
+                    nl = len(st.indptr[s]) - 1
+                    rows_local = np.repeat(np.arange(nl, dtype=np.int64),
+                                           np.diff(st.indptr[s]))
+                    scat[s, : st.nnz_local[s]] = (
+                        rows_local * G + st.colval[s].astype(np.int64))
+                check_index("dense_scatter", scat, st.Lrow * G,
+                            sentinel=st.Lrow * G)
+                self.dense_scatter = be.tensor(scat)
+            else:
+                self._build_ell(A)
+
+    def _build_ell(self, A):
+        """ELL(+COO tail) layout for general sparsity: per-shard (Lrow, W)
+        column table indexing the gathered buffer; entries past W in their
+        row spill into a COO tail handled by a scatter-add."""
+        st = A.structure
+        be = A.backend
+        S = be.nshards
+        self.ell = False
+        if st.nnz == 0:
+            return
+        lens_all = []
+        for s in range(S):
+            ip = st.indptr[s]
+            lens_all.append(np.diff(ip) if len(ip) > 1
+                            else np.zeros(0, np.int64))
+        maxlen = max((int(ln.max()) if ln.size else 0) for ln in lens_all)
+        nrows_tot = max(1, sum(ln.size for ln in lens_all))
+        mean_len = st.nnz / nrows_tot
+        W = int(min(maxlen, max(ELL_MIN_WIDTH,
+                                int(np.ceil(ELL_WIDTH_MULT * mean_len)))))
+        if W == 0:
+            return
+        cols = np.zeros((S, st.Lrow, W), dtype=np.int32)
+        ell_scat = np.full((S, st.NNZpad), st.Lrow * W, dtype=np.int32)
+        tails = []          # per shard (rows, gidx, nzpos)
+        ell_lib = load_ell()
+        for s in range(S):
+            lens = lens_all[s]
+            nl = lens.size
+            if not nl:
+                tails.append((np.zeros(0, np.int64),) * 3)
+                continue
+            ip = st.indptr[s]
+            if ell_lib is not None:
+                # single-pass C++ layout build (native/route.cpp ell_build)
+                nov = int(np.maximum(lens - W, 0).sum())
+                trow = np.empty(max(nov, 1), np.int32)
+                tgidx = np.empty(max(nov, 1), np.int32)
+                tpos = np.empty(max(nov, 1), np.int64)
+                nt = ell_lib.ell_build(
+                    nl, st.Lrow, W, int(st.NNZpad),
+                    np.ascontiguousarray(ip, np.int64),
+                    np.ascontiguousarray(st.colval[s], np.int32),
+                    cols[s].reshape(-1), ell_scat[s], trow, tgidx, tpos)
+                tails.append((trow[:nt].astype(np.int64),
+                              tgidx[:nt].astype(np.int64), tpos[:nt]))
+                continue
+            rows_l = np.repeat(np.arange(nl), lens)
+            within = np.arange(len(rows_l)) - np.repeat(ip[:-1], lens)
+            main = within < W
+            cols[s, rows_l[main], within[main]] = st.colval[s][main]
+            ell_scat[s, np.flatnonzero(main)] = rows_l[main] * W + within[main]
+            ov = ~main
+            tails.append((rows_l[ov], st.colval[s][ov].astype(np.int64),
+                          np.flatnonzero(ov)))
+        Tpad = max(t[0].size for t in tails)
+        Tpad = int(-(-Tpad // 8) * 8) if Tpad else 0
+        G = self.exchange.out_pad
+        self.ell = True
+        self.ell_W = W
+        self.ell_Tpad = Tpad
+        self.ell_cols_np = cols.reshape(S, st.Lrow * W)
+        check_index("ell_cols", self.ell_cols_np, G)
+        check_index("ell_scat", ell_scat, st.Lrow * W, sentinel=st.Lrow * W)
+        self.ell_cols = be.tensor(self.ell_cols_np)
+        self.ell_scat = be.tensor(ell_scat, torch.int64)
+        if Tpad:
+            trows = np.full((S, Tpad), st.Lrow, dtype=np.int32)   # drop slot
+            tgidx = np.zeros((S, Tpad), dtype=np.int32)
+            tscat = np.full((S, st.NNZpad), Tpad, dtype=np.int64)  # drop
+            for s, (r, g, p) in enumerate(tails):
+                trows[s, : r.size] = r
+                tgidx[s, : r.size] = g
+                tscat[s, p] = np.arange(r.size)
+            check_index("ell_tail_rows", trows, st.Lrow, sentinel=st.Lrow)
+            check_index("ell_tail_gidx", tgidx, G)
+            check_index("ell_tail_scat", tscat, Tpad, sentinel=Tpad)
+            self.ell_tail_rows = be.tensor(trows)
+            self.ell_tail_gidx = be.tensor(tgidx)
+            self.ell_tail_scat = be.tensor(tscat)
+
+
+def get_spmv_plan(A, x) -> SpMVPlan:
+    """Memoized plan (ref: get_vector_plan, sparse.jl:1992)."""
+    key = (A.hash, x.partition_hash, A.backend.key)
+
+    def build():
+        exchange = gather_exchange_plan(
+            A.backend, x.partition, A.structure.col_indices,
+            out_len=A.structure.Gpad,
+        )
+        return SpMVPlan(A, x.partition_hash, exchange)
+
+    return cached_plan("vector_plan", key, build)
+
+
+def _scatter_table(scat: torch.Tensor, nzval: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """(S, width) table with nzval[s, k] at column scat[s, k]; index
+    ``width`` is the drop slot for padding entries."""
+    z = nzval.new_zeros((nzval.shape[0], width + 1))
+    z.scatter_(1, scat, nzval)
+    return z[:, :width].contiguous()
+
+
+def _engine_cache(A) -> dict:
+    cache = getattr(A, "_engine_cache", None)
+    if cache is None:
+        cache = A._engine_cache = {}
+    return cache
+
+
+def _dia_values(A, plan: SpMVPlan) -> torch.Tensor:
+    """(S, O, Lrow) diagonal-value table, built once per matrix instance."""
+    cache = _engine_cache(A)
+    hit = cache.get(("dia", plan.key))
+    if hit is None:
+        st = A.structure
+        O = len(plan.offsets)
+        hit = _scatter_table(plan.dia_scatter, A.nzval, O * st.Lrow) \
+            .reshape(A.backend.nshards, O, st.Lrow)
+        cache[("dia", plan.key)] = hit
+    return hit
+
+
+def _dense_block(A, plan: SpMVPlan) -> torch.Tensor:
+    """(S, Lrow, Gpad) densified local block, cached per matrix instance."""
+    cache = _engine_cache(A)
+    hit = cache.get(("dense", plan.key))
+    if hit is None:
+        st = A.structure
+        G = plan.exchange.out_pad
+        hit = _scatter_table(plan.dense_scatter, A.nzval, st.Lrow * G) \
+            .reshape(A.backend.nshards, st.Lrow, G)
+        cache[("dense", plan.key)] = hit
+    return hit
+
+
+def _ell_values(A, plan: SpMVPlan):
+    """Per-instance ELL value tables: (S, Lrow, W) bulk plus (S, Tpad)
+    tail (None without a tail), cached per matrix instance."""
+    cache = _engine_cache(A)
+    hit = cache.get(("ell", plan.key))
+    if hit is None:
+        st = A.structure
+        W, Tpad = plan.ell_W, plan.ell_Tpad
+        vals = _scatter_table(plan.ell_scat, A.nzval, st.Lrow * W) \
+            .reshape(A.backend.nshards, st.Lrow, W)
+        tvals = _scatter_table(plan.ell_tail_scat, A.nzval, Tpad) \
+            if Tpad else None
+        hit = (vals, tvals)
+        cache[("ell", plan.key)] = hit
+    return hit
+
+
+def _segment_spmv(A, g: torch.Tensor) -> torch.Tensor:
+    """Fallback per-shard CSR SpMV as gather + segment sum (ref kernel:
+    _spmv_kernel!, sparse.jl:2055)."""
+    st = A.structure
+    dt = torch.promote_types(A.nzval.dtype, g.dtype)
+    contrib = A.nzval.to(dt) * torch.gather(g.to(dt), 1, st.colval_dev.long())
+    y = contrib.new_zeros((A.backend.nshards, st.Lrow + 1))  # col Lrow: drop
+    y.scatter_add_(1, st.row_ids_dev.long(), contrib)
+    return y[:, : st.Lrow].contiguous()
+
+
+def matvec(A, x):
+    """y = A @ x (ref: Base.:*(A::HPCSparseMatrix, x::HPCVector),
+    sparse.jl:2096-2128)."""
+    from ..vector import DistVector
+
+    if len(x) != A.ncols:
+        raise ValueError(f"dimension mismatch: A is {A.shape}, x has {len(x)}")
+    st = A.structure
+    plan = get_spmv_plan(A, x)
+    ex = plan.exchange
+    # fully local gather: the engines read x itself, cut or zero-padded to
+    # the gathered width, and the exchange is skipped
+    if ex.is_identity:
+        g, pad_to = x.data, ex.out_pad
+    else:
+        g, pad_to = ex.apply(x.data), 0
+    if plan.offsets is not None:
+        y = dia_spmv(_dia_values(A, plan), g, plan.offsets, plan.bias_lo,
+                     plan.bias_hi, pad_to)
+    elif plan.densify:
+        blk = _dense_block(A, plan)
+        g = pad_trunc(g, pad_to)
+        dt = torch.promote_types(blk.dtype, g.dtype)
+        y = torch.bmm(blk.to(dt), g.to(dt).unsqueeze(-1)).squeeze(-1)
+    elif plan.ell:
+        vals, tvals = _ell_values(A, plan)
+        tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
+            if plan.ell_Tpad else None
+        y = ell_spmv(vals, plan.ell_cols, g, tail, pad_to)
+    else:
+        y = _segment_spmv(A, pad_trunc(g, pad_to))
+    return DistVector._wrap(y, st.row_partition, A.backend, plan.row_phash)

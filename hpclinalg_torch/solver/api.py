@@ -1,0 +1,439 @@
+"""Solver API: lu / ldlt / solve with the reference's backslash cache.
+
+Port of the JAX package's ``hpclinalg/solver/api.py``, host engine only.
+Reference semantics (src/mumps_factorization.jl, HPCLinearAlgebra.jl:
+626-744):
+  * ``lu(A)`` / ``ldlt(A)`` return a Factorization; ``F.solve(b)`` solves.
+  * ``solve(A, b)`` (the ``A \\ b`` analogue) consults a cache keyed by
+    (structural hash, kind, dtype): a hit re-uses the symbolic analysis and
+    only refreshes values + refactorizes, through a cached CSR -> permuted
+    CSC value permutation (the reference's ``nzval_perm``).
+  * transpose solves and ``finalize`` are supported.
+
+Numeric phases run in the native C++ engine (native/mf.cpp, BLAS fronts)
+for float64/complex128, with the numpy multifrontal as fallback. The
+device engine (``method="device"``) is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..backend import numpy_dtype
+from ..cache import cached_plan, plan_cache
+from .multifrontal import NumericFactor, factorize, solve_factored, _PERT_REL
+from .native import NativeFactor, load_mf
+from .symbolic import SymbolicFactor, analyze_best, analyze_fastest
+
+DEVICE_SOLVER_SLICE = ("the device multifrontal solver (hpclinalg/solver/"
+                       "device_mf.py) is ported in a later slice")
+
+
+def _is_complex(dtype) -> bool:
+    return np.issubdtype(numpy_dtype(dtype), np.complexfloating)
+
+
+def _get_symbolic(A) -> SymbolicFactor:
+    """Symbolic analysis cached per sparsity pattern — shared by lu/ldlt and
+    every refactorization."""
+    return cached_plan("symbolic", (A.hash,),
+                       lambda: analyze_fastest(A.pattern_csr()))
+
+
+def _perm_csc(A_csr, iperm_rows, iperm_cols):
+    n = A_csr.shape[0]
+    coo = A_csr.tocoo()
+    r2 = iperm_rows[coo.row]
+    c2 = iperm_cols[coo.col]
+    order = np.lexsort((r2, c2))  # CSC: by column, then row
+    indices = r2[order].astype(np.int64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, c2[order] + 1, 1)
+    indptr = np.cumsum(indptr).astype(np.int64)
+    return indptr, indices, order.astype(np.int64)
+
+
+def _get_perm_csc(A, sym):
+    """Cached permuted-CSC pattern + the CSR-data -> permuted-CSC-data map
+    (the reference's nzval_perm, mumps_factorization.jl:105-140)."""
+    return cached_plan("solver_perm", (A.hash,),
+                       lambda: _perm_csc(A.pattern_csr(), sym.iperm, sym.iperm))
+
+
+def _colperm_matching(A_host) -> np.ndarray | None:
+    """MC64-role maximum-product transversal: a column permutation cperm
+    with A[i, cperm[i]] large, via min-weight full bipartite matching on
+    -log(|a| / rowmax). None when structurally singular or the identity
+    already matches."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import min_weight_full_bipartite_matching
+
+    M = sp.csr_matrix(abs(A_host))
+    n = M.shape[0]
+    if M.nnz == 0:
+        return None
+    rowmax = np.maximum(np.asarray(abs(M).max(axis=1).todense()).ravel(),
+                        1e-300)
+    W = M.tocoo()
+    w = 1e-3 - np.log(np.maximum(W.data, 1e-300) / rowmax[W.row])
+    Wm = sp.csr_matrix((w, (W.row, W.col)), shape=M.shape)
+    try:
+        rows_i, cols_i = min_weight_full_bipartite_matching(Wm)
+    except ValueError:  # structurally singular
+        return None
+    if len(rows_i) < n:
+        return None
+    cperm = np.empty(n, np.int64)
+    cperm[rows_i] = cols_i
+    if np.array_equal(cperm, np.arange(n)):
+        return None
+    return cperm
+
+
+def _cperm_key(cperm) -> str:
+    import hashlib
+
+    return hashlib.blake2b(cperm.tobytes(), digest_size=12).hexdigest()
+
+
+def _get_symbolic_cp(A, cperm) -> SymbolicFactor:
+    """Symbolic analysis of the column-permuted pattern A[:, cperm]."""
+
+    def build():
+        import scipy.sparse as sp
+
+        pat = A.pattern_csr()
+        icperm = np.argsort(cperm)
+        B = sp.csr_matrix((pat.data, icperm[pat.indices], pat.indptr),
+                          shape=pat.shape)
+        B.sort_indices()
+        return analyze_best(B)
+
+    return cached_plan("symbolic", (A.hash, "cp", _cperm_key(cperm)), build)
+
+
+def _get_perm_csc_cp(A, sym, cperm):
+    """_get_perm_csc for the column-permuted system B = A[:, cperm]."""
+    return cached_plan(
+        "solver_perm", (A.hash, "cp", _cperm_key(cperm)),
+        lambda: _perm_csc(A.pattern_csr(), sym.iperm,
+                          sym.iperm[np.argsort(cperm)]))
+
+
+class Symmetric:
+    """Marker asserting symmetry for solves — the analogue of wrapping in
+    LinearAlgebra.Symmetric before backslash."""
+
+    def __init__(self, A):
+        self.A = A
+
+    def __matmul__(self, o):
+        return self.A @ o
+
+    @property
+    def shape(self):
+        return self.A.shape
+
+
+class _CSCView:
+    __slots__ = ("indptr", "indices", "data")
+
+    def __init__(self, indptr, indices, data):
+        self.indptr, self.indices, self.data = indptr, indices, data
+
+
+class Factorization:
+    """LDLᵀ/LU factorization handle on the host engine (ref:
+    MUMPSFactorization, mumps_factorization.jl:42)."""
+
+    _GROWTH_MAX = 1e8
+
+    def __init__(self, A, kind: str):
+        self.A = A
+        self.kind = kind
+        self.backend = A.backend
+        self.structural_hash = A.hash
+        self.dtype = np.dtype(np.complex128 if _is_complex(A.dtype)
+                              else np.float64)
+        self._A_host = None
+        self._csc_buf = None
+        self._growth: float | None = None
+        self.cperm: np.ndarray | None = None  # MC64-role column permutation
+        self.sym = _get_symbolic(A)
+        self._lib = load_mf()
+        self.native: NativeFactor | None = (
+            NativeFactor(self.sym, self.dtype) if self._lib is not None else None)
+        self.num: NumericFactor | None = None
+        self._numeric(A)
+
+    def _numeric(self, A):
+        vals = A.host_values().astype(self.dtype, copy=False)
+        # host CSR copy for refinement residuals; its value refresh is lazy
+        # (only refinement and escalation read it). Rows are deliberately
+        # left unsorted so the storage-order value refresh stays aligned.
+        self._A_vals = vals
+        if self._A_host is None:
+            M = A.pattern_csr().astype(self.dtype)
+            M.data[:] = vals
+            self._A_host = M
+            self._A_host_stale = False
+        else:
+            self._A_host_stale = True
+        if self.native is None:
+            self.num = factorize(self.sym, A.to_scipy(), self.kind)
+            return
+        anorm = float(np.abs(vals).max()) if vals.size else 0.0
+        # relative threshold (no 1.0 floor: it would perturb every pivot of
+        # a small-magnitude matrix)
+        eps = _PERT_REL * (anorm if anorm > 0 else 1.0)
+        csc = self._csc_for(A, vals)
+        self._growth = None
+        self.native.factorize(self._lib, csc, self.kind, eps,
+                              pivot=self.cperm is not None)
+        if self._unstable():
+            # a static perturbation fired, or the factor shows large element
+            # growth: escalate to the within-front pivoted kernels (BK LDLt /
+            # partial-pivot LU — the MUMPS CNTL(1) role)
+            self._growth = None
+            self.native.factorize(self._lib, csc, self.kind, eps, pivot=True)
+        if self._unstable() and self.kind == "lu" and self.cperm is None:
+            # in-front pivoting exhausted its candidates: refactor on the
+            # MC64-role column permutation (the MUMPS ICNTL(6) role)
+            cperm = _colperm_matching(self._host_matrix())
+            if cperm is not None:
+                self.cperm = cperm
+                self.sym = _get_symbolic_cp(A, cperm)
+                self.native = NativeFactor(self.sym, self.dtype)
+                self._growth = None
+                self.native.factorize(self._lib, self._csc_for(A, vals),
+                                      self.kind, eps, pivot=True)
+
+    def _host_matrix(self):
+        """The host CSR copy with CURRENT values (lazy refresh)."""
+        if self._A_host_stale:
+            self._A_host.data[:] = self._A_vals
+            self._A_host_stale = False
+        return self._A_host
+
+    def _factor_growth(self) -> float:
+        """Max |L| entry, from the native factorize pass; memoized per
+        numeric factorization."""
+        if self._growth is None:
+            self._growth = float(getattr(self.native, "growth", 0.0))
+        return self._growth
+
+    def _unstable(self) -> bool:
+        return (self.native.n_perturbed > 0
+                or self._factor_growth() > self._GROWTH_MAX)
+
+    def _csc_for(self, A, vals):
+        if self.cperm is None:
+            indptr, indices, nzmap = _get_perm_csc(A, self.sym)
+        else:
+            indptr, indices, nzmap = _get_perm_csc_cp(A, self.sym, self.cperm)
+        # reusable permuted-value buffer: the native factorize reads it
+        # synchronously, so reuse across refactorizations is safe
+        buf = self._csc_buf
+        if buf is None or buf.size != nzmap.size or buf.dtype != vals.dtype:
+            buf = self._csc_buf = np.empty(nzmap.size, vals.dtype)
+        np.take(vals, nzmap, out=buf)
+        return _CSCView(indptr, indices, buf)
+
+    # -- refactorization: same pattern, new values --------------------------
+    def refactorize(self, A) -> "Factorization":
+        if A.hash != self.structural_hash:
+            raise ValueError("refactorize requires the same sparsity pattern")
+        new_dtype = np.dtype(np.complex128 if _is_complex(A.dtype)
+                             else np.float64)
+        if new_dtype != self.dtype:
+            # value dtype changed on the same pattern: rebuild the numeric
+            # engine instead of silently casting to the stale dtype
+            self.dtype = new_dtype
+            self._A_host = None
+            self._csc_buf = None
+            self.native = (NativeFactor(self.sym, self.dtype)
+                           if self._lib is not None else None)
+            self.num = None
+        self.A = A
+        self._numeric(A)
+        return self
+
+    def _solve_host(self, bh: np.ndarray, transpose: bool) -> np.ndarray:
+        if self.native is None:
+            return solve_factored(self.num, bh, transpose=transpose)
+        if self.cperm is None:
+            return self.native.solve(self._lib, bh, transpose=transpose)
+        # factor is of B = A[:, cperm]:  A x = b  <=>  B y = b with
+        # x[cperm] = y;  A^T x = b  <=>  B^T x = b[cperm]
+        if transpose:
+            return self.native.solve(self._lib, bh[self.cperm], transpose=True)
+        y = self.native.solve(self._lib, bh, transpose=False)
+        x = np.empty_like(y)
+        x[self.cperm] = y
+        return x
+
+    def _solve_multi_host(self, Bh: np.ndarray, transpose: bool) -> np.ndarray:
+        if self.native is None:
+            return np.stack([solve_factored(self.num, Bh[:, j],
+                                            transpose=transpose)
+                             for j in range(Bh.shape[1])], axis=1)
+        if self.cperm is None:
+            return self.native.solve_multi(self._lib, Bh, transpose=transpose)
+        if transpose:
+            return self.native.solve_multi(
+                self._lib, np.ascontiguousarray(Bh[self.cperm]), transpose=True)
+        Y = self.native.solve_multi(self._lib, Bh, transpose=False)
+        X = np.empty_like(Y)
+        X[self.cperm] = Y
+        return X
+
+    def _refined(self, solve_host, bh: np.ndarray, transpose: bool,
+                 refine: int) -> np.ndarray:
+        """Solve + iterative refinement with host residuals in full
+        precision. ``bh`` must already be self.dtype."""
+        x = solve_host(bh, transpose)
+        if refine <= 0:
+            return x
+        Ah = self._host_matrix().T if transpose else self._host_matrix()
+        for _ in range(refine):
+            r = bh - Ah @ x
+            if not np.isfinite(r).all():
+                break
+            x = x + solve_host(r, transpose)
+        return x
+
+    def _solve_any(self, solve_host, bh: np.ndarray, transpose: bool,
+                   refine: int | None) -> np.ndarray:
+        if self.native is None and self.num is None:
+            raise RuntimeError("factorization was finalized")
+        if refine is None:
+            # unperturbed, growth-bounded f64 direct solves are already at
+            # ~1e-13 relative residual (the reference's MUMPS path runs
+            # without refinement by default)
+            refine = 0 if self._clean() else 3
+        dtype = np.result_type(bh.dtype, self.dtype)
+        if np.issubdtype(bh.dtype, np.complexfloating) \
+                and not np.issubdtype(self.dtype, np.complexfloating):
+            # real factorization, complex RHS: solve Re(b) and Im(b) apart
+            xr = self._refined(solve_host, np.ascontiguousarray(bh.real),
+                               transpose, refine)
+            xi = self._refined(solve_host, np.ascontiguousarray(bh.imag),
+                               transpose, refine)
+            return (xr + 1j * xi).astype(dtype)
+        return self._refined(solve_host, bh.astype(self.dtype), transpose,
+                             refine).astype(dtype)
+
+    def solve(self, b, transpose: bool = False, refine: int | None = None):
+        """Solve A x = b (or Aᵀ x = b). b: DistVector or host array; returns
+        the same flavor, partitioned like A's rows. The RHS is gathered to
+        the host, as the reference gathers it for MUMPS
+        (mumps_factorization.jl:316-329)."""
+        from ..vector import DistVector
+
+        is_dist = isinstance(b, DistVector)
+        bh = b.to_numpy() if is_dist else np.asarray(b)
+        x = self._solve_any(self._solve_host, bh, transpose, refine)
+        if is_dist:
+            return DistVector.from_global_deferred(
+                x, self.backend, partition=self.A.row_partition, dtype=x.dtype)
+        return x
+
+    def solve_matrix(self, B, transpose: bool = False,
+                     refine: int | None = None) -> np.ndarray:
+        """Blocked multi-RHS solve of a host (n, k) array: all columns go
+        through one gemm-based sweep, with matrix-level refinement."""
+        return self._solve_any(self._solve_multi_host, np.asarray(B),
+                               transpose, refine)
+
+    def finalize(self):
+        """Release numeric data (ref: finalize!, mumps_factorization.jl:421)."""
+        self.num = None
+        self.native = None
+
+    def _clean(self) -> bool:
+        """No perturbations and bounded growth: safe to skip refinement."""
+        if self.n_perturbed != 0:
+            return False
+        if self.native is not None:
+            return self._factor_growth() <= self._GROWTH_MAX
+        return True
+
+    @property
+    def n_perturbed(self) -> int:
+        if self.native is not None:
+            return self.native.n_perturbed
+        return self.num.n_perturbed if self.num else 0
+
+    def __repr__(self):
+        return (f"Factorization(kind={self.kind}, n={self.A.m}, "
+                f"nsuper={self.sym.nsuper}, lnz={self.sym.lnz}, "
+                f"native={self.native is not None})")
+
+
+def _host_method(method):
+    if method == "device":
+        raise NotImplementedError(DEVICE_SOLVER_SLICE)
+    if method not in (None, "host"):
+        raise ValueError(f"unknown solver method {method!r}")
+
+
+def ldlt(A, method: str | None = None):
+    """Ref: ldlt (mumps_factorization.jl:259). Symmetric (possibly complex-
+    symmetric) LDLᵀ with static pivoting on the host engine."""
+    _host_method(method)
+    if A.m != A.ncols:
+        raise ValueError("ldlt requires a square matrix")
+    return Factorization(A, "ldlt")
+
+
+def lu(A, method: str | None = None):
+    """Ref: lu (mumps_factorization.jl:242). Unsymmetric LU on the
+    symmetrized pattern with static pivoting + refinement."""
+    _host_method(method)
+    if A.m != A.ncols:
+        raise ValueError("lu requires a square matrix")
+    return Factorization(A, "lu")
+
+
+class BackslashCache:
+    """The A \\ b cache (ref: _mumps_backslash_cache keyed on
+    (hash, symmetric, T), HPCLinearAlgebra.jl:643-744): repeated solves with
+    the same sparsity pattern skip symbolic analysis; same values skip the
+    numeric factorization entirely."""
+
+    @staticmethod
+    def _cache():
+        return plan_cache("backslash")
+
+    @staticmethod
+    def solve(A, b, symmetric: bool | None = None, transpose: bool = False):
+        if symmetric is None:
+            symmetric = A.issymmetric()
+        kind = "ldlt" if symmetric else "lu"
+        # the value dtype is part of the key: a complex-valued matrix on a
+        # real-valued pattern twin must not hit the real factorization
+        key = (A.hash, kind, str(A.dtype), A.backend.key)
+        c = BackslashCache._cache()
+        F = c.get(key)
+        if F is None:
+            F = Factorization(A, kind)
+            c[key] = F
+        elif F._vals_ref is not A.nzval:
+            # identity of the value tensor detects value swaps; the strong
+            # reference makes this immune to id recycling
+            F.refactorize(A)
+        F._vals_ref = A.nzval
+        from ..vector import DistVector
+
+        if not isinstance(b, DistVector) and np.ndim(b) == 2:
+            return F.solve_matrix(b, transpose=transpose)
+        return F.solve(b, transpose=transpose)
+
+
+def solve(A, b, symmetric: bool | None = None, transpose: bool = False):
+    """``A \\ b`` (ref: Base.:\\, HPCLinearAlgebra.jl:674). Wrapping A in
+    Symmetric asserts symmetry; ``transpose=True`` solves Aᵀ x = b."""
+    if isinstance(A, Symmetric):
+        return BackslashCache.solve(A.A, b, symmetric=True,
+                                    transpose=transpose)
+    return BackslashCache.solve(A, b, symmetric=symmetric, transpose=transpose)

@@ -1,0 +1,268 @@
+"""DistSparseMatrix: the distributed row-partitioned CSR sparse matrix.
+
+PyTorch counterpart of the JAX package's ``DistSparseMatrix`` (and of the
+reference's ``HPCSparseMatrix``): each shard owns a contiguous block of rows
+stored as local CSR with a **compressed column space** — ``col_indices[s]``
+is the sorted set of global columns present on shard s and ``colval[s]``
+holds indices into it.
+
+  * ALL structure metadata (partitions, indptr, col_indices, colval) is host
+    numpy, wrapped in an immutable ``SparseStructure`` that carries the
+    blake2b structural hash keying the plan caches. The arrays and the hash
+    equal the JAX package's for the same input.
+  * Only ``nzval`` lives on the device: one stacked (S, NNZpad) tensor,
+    padding zero. Matrices sharing a pattern share the structure object,
+    so plans and symbolic factorizations are reused.
+"""
+
+from __future__ import annotations
+
+from functools import cached_property
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .backend import Backend, numpy_dtype, resolve_dtype
+from .config import round_up
+from .partition import padded_size, uniform_partition, validate_partition
+
+
+class SparseStructure:
+    """Immutable host description of a distributed CSR pattern."""
+
+    def __init__(self, row_partition, col_partition, indptr, col_indices, colval,
+                 backend: Backend):
+        self.backend = backend
+        self.row_partition = validate_partition(row_partition)
+        self.col_partition = validate_partition(col_partition)
+        self.indptr = [np.asarray(a, dtype=np.int64) for a in indptr]
+        self.col_indices = [np.asarray(a, dtype=np.int64) for a in col_indices]
+        self.colval = [np.asarray(a, dtype=np.int32) for a in colval]
+        S = backend.nshards
+        if not (len(self.indptr) == len(self.col_indices) == len(self.colval) == S):
+            raise ValueError(f"structure needs one CSR block per shard ({S})")
+
+        self.nnz_local = np.array([len(c) for c in self.colval], dtype=np.int64)
+        self.nnz = int(self.nnz_local.sum())
+        self.Lrow = padded_size(self.row_partition)
+        self.NNZpad = round_up(int(self.nnz_local.max()) if S else 0)
+        # gathered-x buffer length: >= max compressed width + 1 guaranteed-zero
+        # slot that padding colval entries point to (keeps 0*inf out of SpMV)
+        self.Gmax = int(max((len(c) for c in self.col_indices), default=0))
+        self.Gpad = round_up(self.Gmax + 1)
+
+    @cached_property
+    def hash(self) -> str:
+        from .hashing import sparse_structural_hash
+
+        return sparse_structural_hash(self.row_partition, self.col_partition,
+                                      self.indptr, self.col_indices,
+                                      self.colval)
+
+    @cached_property
+    def row_ids(self) -> np.ndarray:
+        """(S, NNZpad) int32 local row of each stored value; padding points
+        at row Lrow, which the segment sum drops."""
+        S = self.backend.nshards
+        out = np.full((S, self.NNZpad), self.Lrow, dtype=np.int32)
+        for s in range(S):
+            nl = len(self.indptr[s]) - 1
+            out[s, : self.nnz_local[s]] = np.repeat(
+                np.arange(nl, dtype=np.int32), np.diff(self.indptr[s]))
+        return out
+
+    @cached_property
+    def row_ids_dev(self) -> torch.Tensor:
+        return self.backend.tensor(self.row_ids)
+
+    @cached_property
+    def colval_dev(self) -> torch.Tensor:
+        """(S, NNZpad) int32 compressed column of each stored value; padding
+        points at the guaranteed-zero slot of the gathered-x buffer."""
+        S = self.backend.nshards
+        out = np.empty((S, self.NNZpad), dtype=np.int32)
+        for s in range(S):
+            out[s, :] = len(self.col_indices[s])  # a zero slot < Gpad
+            out[s, : self.nnz_local[s]] = self.colval[s]
+        return self.backend.tensor(out)
+
+    @property
+    def shape(self):
+        return (int(self.row_partition[-1]), int(self.col_partition[-1]))
+
+
+def _structure_from_local_csr(parts, ncols, backend, col_partition=None):
+    """parts: list of (indptr, global col indices) per shard."""
+    indptr, col_indices, colval = [], [], []
+    sizes = []
+    # flag-array compression: a presence bitmap + rank table is two linear
+    # passes instead of unique+searchsorted sorts; huge column spaces take
+    # the sort path
+    use_flags = 0 < ncols <= (1 << 24)
+    if use_flags:
+        present = np.zeros(ncols, bool)
+        rank = np.empty(ncols, np.int32)
+    for ip, gj in parts:
+        ip = np.asarray(ip, dtype=np.int64)
+        gj = np.asarray(gj, dtype=np.int64)
+        sizes.append(len(ip) - 1)
+        if use_flags and len(gj):
+            present[:] = False
+            present[gj] = True
+            ci = np.flatnonzero(present).astype(np.int64)
+            rank[ci] = np.arange(len(ci), dtype=np.int32)
+            cv = rank[gj]
+        else:
+            ci = np.unique(gj)
+            cv = np.searchsorted(ci, gj).astype(np.int32)
+        indptr.append(ip)
+        col_indices.append(ci)
+        colval.append(cv)
+    row_partition = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    cp = (validate_partition(col_partition, ncols) if col_partition is not None
+          else uniform_partition(ncols, backend.nshards))
+    return SparseStructure(row_partition, cp, indptr, col_indices, colval, backend)
+
+
+def _pad_stack_nzval(vals: list[np.ndarray], NNZpad: int, dtype) -> np.ndarray:
+    out = np.zeros((len(vals), NNZpad), dtype=dtype)
+    for s, v in enumerate(vals):
+        out[s, : len(v)] = v
+    return out
+
+
+class DistSparseMatrix:
+    """Distributed CSR sparse matrix (ref: HPCSparseMatrix, sparse.jl:319)."""
+
+    __array_priority__ = 120
+
+    def __init__(self, structure: SparseStructure, nzval: torch.Tensor,
+                 backend: Backend):
+        if tuple(nzval.shape) != (backend.nshards, structure.NNZpad):
+            raise ValueError(f"nzval must be {(backend.nshards, structure.NNZpad)}"
+                             f", got {tuple(nzval.shape)}")
+        self.structure = structure
+        self.nzval = nzval  # (S, NNZpad), padding zero
+        self.backend = backend
+        self._issym: bool | None = None
+
+    # -- identity / metadata -------------------------------------------------
+    @property
+    def hash(self) -> str:
+        return self.structure.hash
+
+    @property
+    def row_partition(self) -> np.ndarray:
+        return self.structure.row_partition
+
+    @property
+    def col_partition(self) -> np.ndarray:
+        return self.structure.col_partition
+
+    @property
+    def shape(self):
+        return self.structure.shape
+
+    @property
+    def m(self):
+        return self.shape[0]
+
+    @property
+    def ncols(self):
+        return self.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.nzval.dtype
+
+    def nnz(self) -> int:
+        return self.structure.nnz
+
+    # -- constructors ----------------------------------------------------------
+    @staticmethod
+    def from_scipy(A, backend: Backend, row_partition=None, col_partition=None,
+                   dtype=None) -> "DistSparseMatrix":
+        """Build from a host scipy sparse matrix — each shard slices its rows
+        (ref global ctor, sparse.jl:398-409)."""
+        A = sp.csr_matrix(A)
+        A.sort_indices()
+        m, n = A.shape
+        rp = (validate_partition(row_partition, m) if row_partition is not None
+              else uniform_partition(m, backend.nshards))
+        parts, vals = [], []
+        for s in range(backend.nshards):
+            loc = A[int(rp[s]): int(rp[s + 1])]
+            parts.append((loc.indptr.astype(np.int64), loc.indices.astype(np.int64)))
+            vals.append(loc.data)
+        st = _structure_from_local_csr(parts, n, backend, col_partition)
+        nz = _pad_stack_nzval(vals, st.NNZpad,
+                              resolve_dtype(backend, A.dtype, dtype))
+        return DistSparseMatrix(st, backend.tensor(nz), backend)
+
+    def with_values(self, nzval: torch.Tensor) -> "DistSparseMatrix":
+        """Same pattern, new values — shares structure, hash, and every plan."""
+        return DistSparseMatrix(self.structure, nzval, self.backend)
+
+    def _gathered_pattern(self):
+        """(indptr, indices) of the global CSR, from host metadata only."""
+        st = self.structure
+        indices_all = []
+        indptr = np.zeros(self.m + 1, dtype=np.int64)
+        rows_done = 0
+        for s in range(self.backend.nshards):
+            ip = st.indptr[s]
+            nl = len(ip) - 1
+            indptr[rows_done + 1: rows_done + nl + 1] = indptr[rows_done] + ip[1:]
+            indices_all.append(st.col_indices[s][st.colval[s]]
+                               if len(st.colval[s]) else np.zeros(0, np.int64))
+            rows_done += nl
+        indices = np.concatenate(indices_all) if indices_all else np.zeros(0, np.int64)
+        return indptr, indices
+
+    def pattern_csr(self) -> sp.csr_matrix:
+        """Host CSR of the PATTERN only (data = ones; explicit zeros kept) —
+        for symbolic consumers, which never read values."""
+        indptr, indices = self._gathered_pattern()
+        return sp.csr_matrix(
+            (np.ones(len(indices), np.float32), indices, indptr),
+            shape=self.shape)
+
+    def host_values(self) -> np.ndarray:
+        """Stored values in global CSR order (matches to_scipy().data)."""
+        st = self.structure
+        nz = self.nzval.detach().cpu().numpy()
+        if not self.backend.nshards:
+            return np.zeros(0, numpy_dtype(self.dtype))
+        return np.concatenate([nz[s, : st.nnz_local[s]]
+                               for s in range(self.backend.nshards)])
+
+    def to_scipy(self) -> sp.csr_matrix:
+        """Gather to a host scipy CSR (ref converter SparseMatrixCSC(),
+        HPCLinearAlgebra.jl:871-930)."""
+        indptr, indices = self._gathered_pattern()
+        return sp.csr_matrix((self.host_values(), indices, indptr),
+                             shape=self.shape)
+
+    def issymmetric(self) -> bool:
+        """Exact symmetry of pattern and values, checked on the host."""
+        if self._issym is None:
+            if self.m != self.ncols:
+                self._issym = False
+            else:
+                A = self.to_scipy()
+                self._issym = (A != A.T).nnz == 0
+        return self._issym
+
+    # -- operators --------------------------------------------------------------
+    def __matmul__(self, o):
+        from .ops import spmv
+        from .vector import DistVector
+
+        if isinstance(o, DistVector):
+            return spmv.matvec(self, o)
+        return NotImplemented
+
+    def __repr__(self):
+        return (f"DistSparseMatrix(shape={self.shape}, nnz={self.nnz()}, "
+                f"shards={self.backend.nshards}, dtype={self.dtype})")

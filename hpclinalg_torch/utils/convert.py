@@ -1,0 +1,38 @@
+"""Carry container state over from the JAX package.
+
+For this system the "weights" are the matrix and the vectors. These
+constructors take the JAX containers' state as numpy arrays (the caller
+does ``np.asarray(...)`` on the JAX side) and build the port's containers
+from it without recomputing anything: the stacked data, partitions and
+compressed-column structure are taken as they are. No JAX import is needed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..backend import Backend
+from ..sparse import DistSparseMatrix, SparseStructure
+from ..vector import DistVector
+
+
+def from_reference(backend: Backend, *, data=None, partition=None,
+                   nzval=None, indptr=None, colval=None, col_indices=None,
+                   row_partition=None, col_partition=None, ncols=None):
+    """A DistVector from ``data`` (S, L) and ``partition``, or a
+    DistSparseMatrix from ``nzval`` (S, NNZpad) and the SparseStructure
+    arrays (per-shard ``indptr``, ``colval``, ``col_indices``, the two
+    partitions and ``ncols``)."""
+    if data is not None:
+        if partition is None:
+            raise ValueError("a vector needs its partition")
+        return DistVector(backend.tensor(np.asarray(data)),
+                          np.asarray(partition), backend)
+    if any(a is None for a in (nzval, indptr, colval, col_indices,
+                               row_partition, col_partition)):
+        raise ValueError("a matrix needs nzval and every structure array")
+    st = SparseStructure(row_partition, col_partition, indptr, col_indices,
+                         colval, backend)
+    if ncols is not None and st.shape[1] != int(ncols):
+        raise ValueError(f"ncols {ncols} != column partition end {st.shape[1]}")
+    return DistSparseMatrix(st, backend.tensor(np.asarray(nzval)), backend)
