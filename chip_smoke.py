@@ -16,7 +16,20 @@ hpclinalg_torch/csrc, then:
      with the kernels' launch counters reset just before and read just after;
   4. times each kernel against its twin (median of 20, CUDA events, L2
      flushed before each launch), the CG step (wall and host enqueue time,
-     and the card's busy share from a torch.profiler trace) and the build.
+     and the card's busy share from a torch.profiler trace) and the build;
+  5. holds K3 (resident-x ELL SpMV) against its plain version and against K2
+     on the same tables: the ridge normal matrix N = A^T A + lambda I (f32
+     and f64, S = 1 and 4), the tall design A (f64), and a gathered x at
+     the shared-memory cap; a gathered x over the cap must take K2;
+  6. drives the sparse ridge-regression path through the public API in f64
+     at S = 1 and 4 — A is 10^6 x 16384 with 4 entries a row in a band:
+     At = A.T.materialize(), N = (At @ A).add_identity(lambda), rhs = At @ b
+     (K2), 50 CG steps on N (K3), ldlt(N).solve(rhs) on the host, A @ x
+     (K3) — with the launch counters reset just before and read just after,
+     then the laplace2d(100)^2 SpGEMM (DIA engine) in f64 and f32; and
+     times K3, K2 and the plain version on each phase-5 case, the SpGEMM
+     with and without its plan build, the transpose, add_identity, the CG
+     step on N and the host factor + solve.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -27,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sp
@@ -38,6 +52,48 @@ K = 1000
 D = 8_000_000          # destinations of the gather-only check
 K1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 K2_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+K3_RTOL = K2_RTOL       # K3 sums a row in K2's order; the tail uses atomics
+RIDGE_M = 1_000_000     # observations (rows of the design A)
+RIDGE_N = 16_384        # unknowns (columns of A, order of N)
+RIDGE_LAMBDA = 1e-2
+RIDGE_CG_STEPS = 50
+# N = A^T A + lambda I has condition number near 3 at this design (1.0e-15
+# relative CG error after 50 steps at 2*10^5 x 4096 in scipy), so the CG
+# iterate must equal the direct solution to this relative tolerance
+RIDGE_CG_RTOL = 1e-11
+
+
+def banded_design(m, n, seed, per_row=4, half=48):
+    """The ridge design matrix and right-hand side: row i holds per_row
+    distinct columns drawn from [c_i - half, c_i + half] ∩ [0, n), with
+    c_i = floor(i n / m), and standard-normal values; b is m standard
+    normals. A local design, as in B-spline smoothing or 1-D deconvolution."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(m, dtype=np.int64) * n) // m
+    lo = np.maximum(c - half, 0)
+    width = np.minimum(c + half, n - 1) - lo + 1
+    chosen = np.zeros((m, 0), np.int64)
+    for j in range(per_row):
+        # the r-th of the width - j columns not chosen yet
+        r = rng.integers(0, width - j)
+        for k in range(j):
+            r += r >= chosen[:, k]
+        chosen = np.sort(np.concatenate([chosen, r[:, None]], 1), axis=1)
+    indptr = np.arange(0, per_row * m + 1, per_row, dtype=np.int64)
+    A = sp.csr_matrix((rng.standard_normal(per_row * m),
+                       (lo[:, None] + chosen).reshape(-1), indptr),
+                      shape=(m, n))
+    return A, rng.standard_normal(m)
+
+
+def random_cols(m, n, per_row, seed):
+    """m x n with per_row uniformly random columns a row (duplicates summed)."""
+    rng = np.random.default_rng(seed)
+    A = sp.csr_matrix((rng.standard_normal(m * per_row),
+                       (np.repeat(np.arange(m), per_row),
+                        rng.integers(0, n, m * per_row))), shape=(m, n))
+    A.sum_duplicates()
+    return A
 
 
 def check(cond, what):
@@ -126,11 +182,233 @@ def device_us(fn):
     return busy, len(spans)
 
 
+def cg(A, b, steps):
+    """``steps`` CG iterations from x = 0 with the port's public API."""
+    x = type(b).zeros(b.n, b.backend)
+    r, p = b, b
+    for _ in range(steps):
+        Ap = A @ p
+        rr = r.dot(r)
+        alpha = rr / p.dot(Ap)
+        x = x + alpha * p
+        r2 = r - alpha * Ap
+        p = r2 + (r2.dot(r2) / rr) * p
+        r = r2
+    return x, r
+
+
+def engine_inputs(A, x):
+    """The SpMV plan of A @ x and the gathered x its engine reads."""
+    from hpclinalg_torch.ops import spmv as spmv_mod
+
+    plan = spmv_mod.get_spmv_plan(A, x)
+    ex = plan.exchange
+    g, pad_to = (x.data, ex.out_pad) if ex.is_identity \
+        else (ex.apply(x.data), 0)
+    return plan, g, pad_to
+
+
+def timed_s(fn):
+    """Wall seconds of one call of ``fn``, the card's queue drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase5_k3(ht, dev, A, N_sc, rng, errs, bench):
+    """K3 against its plain version and against K2 on the same tables, at
+    the shapes of the ridge path and at the shared-memory cap."""
+    from hpclinalg_torch.ops import cuda_ell, cuda_ell_resident as k3
+    from hpclinalg_torch.ops import spmv as spmv_mod
+
+    cap = k3.smem_cap(dev)
+    # a gathered x of Gpad slots, Gpad the largest multiple of 8 whose f64
+    # bytes fit the cap: n = Gpad - 8 columns (plus the zero slot)
+    g_cap = (cap // 8) // 8 * 8
+    print(f"  shared-memory cap {cap} bytes: up to {cap // 8} f64 slots",
+          flush=True)
+    cases = [("N", N_sc, 1, torch.float64), ("N", N_sc, 1, torch.float32),
+             ("N", N_sc, 4, torch.float64), ("N", N_sc, 4, torch.float32),
+             ("A", A, 1, torch.float64),
+             ("at_cap", random_cols(300_000, g_cap - 8, 4, SEED + 6), 1,
+              torch.float64)]
+    for name, M, S, dt in cases:
+        npdt = np.float32 if dt == torch.float32 else np.float64
+        be = ht.backend_auto(S, dtype=npdt, device=dev)
+        Md = ht.DistSparseMatrix.from_scipy(M, be)
+        x = ht.DistVector.from_global(rng.standard_normal(M.shape[1]), be)
+        plan, g, pad_to = engine_inputs(Md, x)
+        G = plan.exchange.out_pad
+        check(plan.engine(dt) == "resident",
+              f"{name} S={S} {dt} takes the resident engine (nnz "
+              f"{Md.nnz()}, W={plan.ell_W}, Tpad={plan.ell_Tpad}, gathered "
+              f"x {G} slots = {G * dt.itemsize} bytes)")
+        vals, tvals = spmv_mod._ell_values(Md, plan)
+        tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
+            if plan.ell_Tpad else None
+        args = (vals, plan.ell_cols, g, tail, pad_to)
+        y3 = k3.ell_resident_spmv(*args)
+        yp = k3.ell_resident_spmv_plain(*args)
+        y2 = cuda_ell.ell_spmv(*args)
+        torch.cuda.synchronize()
+        ok, err = close(y3, yp, K3_RTOL[dt])
+        ok2, err2 = close(y3, y2, K3_RTOL[dt])
+        check(ok and ok2, f"K3 {name} S={S} {dt}: max_abs_err {err:.3e} "
+              f"against the plain version, {err2:.3e} against K2 (rtol "
+              f"{K3_RTOL[dt]:g} of max|y|)")
+        errs["resident"] = max(errs["resident"], err)
+        bench[(name, S, dt)] = tuple(
+            (lambda f=f, a=args: f(*a)) for f in (
+                k3.ell_resident_spmv, cuda_ell.ell_spmv,
+                k3.ell_resident_spmv_plain))
+    # one slot group past the cap: the plan must take K2, and A @ x does
+    M = random_cols(300_000, g_cap, 4, SEED + 7)
+    be = ht.backend_auto(1, dtype=np.float64, device=dev)
+    Md = ht.DistSparseMatrix.from_scipy(M, be)
+    xh = rng.standard_normal(M.shape[1])
+    x = ht.DistVector.from_global(xh, be)
+    plan = spmv_mod.get_spmv_plan(Md, x)
+    Md @ x
+    torch.cuda.synchronize()
+    c2, c3 = cuda_ell.ell_spmv.launches, k3.ell_resident_spmv.launches
+    y = (Md @ x).to_numpy()
+    ok, err = close(torch.from_numpy(y), torch.from_numpy(M @ xh), 1e-12)
+    check(plan.engine(torch.float64) == "ell" and plan.engine(torch.float32)
+          == "resident" and cuda_ell.ell_spmv.launches == c2 + 1
+          and k3.ell_resident_spmv.launches == c3 and ok,
+          f"over the cap ({plan.exchange.out_pad * 8} bytes in f64) A @ x "
+          f"takes K2, not K3 (f32 would fit: resident); max_abs_err "
+          f"{err:.3e} against scipy")
+
+
+def phase6_ridge(ht, dev, A, bh, N_sc, S, timer, card, times):
+    """The sparse ridge-regression path through the public API on S
+    shards, f64; returns the launches of K2 and K3 it made."""
+    from hpclinalg_torch.ops import cuda_ell, cuda_ell_resident as k3
+    from hpclinalg_torch.ops import spgemm as spgemm_mod
+    from hpclinalg_torch.ops import spmv as spmv_mod
+
+    f64 = torch.float64
+    be = ht.backend_auto(S, dtype=np.float64, device=dev)
+    Ad = ht.DistSparseMatrix.from_scipy(A, be)
+    b = ht.DistVector.from_global(bh, be)
+    torch.cuda.synchronize()
+    for f in (cuda_ell.ell_spmv, cuda_ell.gather, k3.ell_resident_spmv):
+        f.launches = 0
+    t = {}
+    At, t["transpose_first_s"] = timed_s(lambda: Ad.T.materialize())
+    C, t["spgemm_first_s"] = timed_s(lambda: At @ Ad)
+    N = C.add_identity(RIDGE_LAMBDA)
+    rhs = At @ b
+    xk, _ = cg(N, rhs, RIDGE_CG_STEPS)
+
+    def factor_solve():
+        F = ht.ldlt(N)
+        return F, F.solve(rhs)
+
+    (F, x), t["ldlt_factor_solve_first_s"] = timed_s(factor_solve)
+    y = Ad @ x
+    torch.cuda.synchronize()
+    launches = {"ell": cuda_ell.ell_spmv.launches,
+                "gather": cuda_ell.gather.launches,
+                "resident": k3.ell_resident_spmv.launches}
+    print(f"  ridge S={S} launches: {launches}", flush=True)
+
+    engines = (spmv_mod.get_spmv_plan(N, rhs).engine(f64),
+               spmv_mod.get_spmv_plan(At, b).engine(f64),
+               spmv_mod.get_spmv_plan(Ad, x).engine(f64))
+    check(engines == ("resident", "ell", "resident"),
+          f"S={S}: N @ p, At @ b, A @ x take {engines}")
+    check(launches["resident"] >= RIDGE_CG_STEPS + 1 and launches["ell"] >= 1,
+          f"S={S}: the path launched K3 {launches['resident']} times and K2 "
+          f"{launches['ell']} times")
+    Nh = N.to_scipy()
+    nplan = spmv_mod.get_spmv_plan(N, rhs)
+    rows, cols = Nh.nonzero()
+    lens = np.diff(Nh.indptr)
+    print(f"  N: {Nh.shape[0]} rows, nnz {Nh.nnz} ({lens.min()}-{lens.max()} "
+          f"a row, mean {lens.mean():.1f}), {len(np.unique(cols - rows))} "
+          f"distinct offsets, ELL W={nplan.ell_W}, SpGEMM pair chunks "
+          f"{spgemm_mod.get_spgemm_plan(At, Ad).nchunks}", flush=True)
+    check(nplan.offsets is None and np.array_equal(Nh.indptr, N_sc.indptr)
+          and np.array_equal(Nh.indices, N_sc.indices),
+          f"S={S}: N has scipy's pattern and the DIA engine refused it")
+    ok, err = close(torch.from_numpy(Nh.data), torch.from_numpy(N_sc.data),
+                    1e-12)
+    check(ok, f"S={S}: N equals scipy's A^T A + lambda I, max_abs_err "
+          f"{err:.3e} (rtol 1e-12 of max|N|)")
+    xh, rh = x.to_numpy(), rhs.to_numpy()
+    ok, err = close(torch.from_numpy(rh), torch.from_numpy(A.T @ bh), 1e-12)
+    check(ok, f"S={S}: At @ b equals scipy's, max_abs_err {err:.3e}")
+    res = np.linalg.norm(N_sc @ xh - rh) / np.linalg.norm(rh)
+    check(res <= 1e-10, f"S={S}: ldlt(N).solve residual {res:.3e} <= 1e-10 "
+          f"(native engine: {F.native is not None})")
+    cg_err = float(np.linalg.norm(xk.to_numpy() - xh) / np.linalg.norm(xh))
+    check(cg_err <= RIDGE_CG_RTOL, f"S={S}: {RIDGE_CG_STEPS} CG steps on N "
+          f"equal the direct solution to {cg_err:.3e} (<= {RIDGE_CG_RTOL:g})")
+    ok, err = close(torch.from_numpy(y.to_numpy()), torch.from_numpy(A @ xh),
+                    1e-12)
+    check(ok, f"S={S}: A @ x equals scipy's, max_abs_err {err:.3e}")
+    sizes = ht.cache_sizes()
+    A2 = Ad.with_values(Ad.nzval * 1.5)
+    C2 = A2.T.materialize() @ A2
+    ok, err = close(C2.nzval, 2.25 * C.nzval, 1e-12)
+    check(ht.cache_sizes() == sizes and C2.structure is C.structure and ok,
+          f"S={S}: At @ A with new values reused every plan (cache sizes "
+          f"{sizes}), max_abs_err {err:.3e}")
+
+    # times: device ones by the Timer (median of 20, L2 flushed), host once
+    t["transpose_values_ms"] = timer.ms(
+        lambda: Ad.with_values(Ad.nzval).transpose_materialized())
+    t["add_identity_ms"] = timer.ms(lambda: C.add_identity(RIDGE_LAMBDA))
+    t["spgemm_values_ms"] = timer.ms(lambda: At @ Ad)
+    cg(N, rhs, 3)
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    cg(N, rhs, RIDGE_CG_STEPS)
+    t["cg_step_host_enqueue_ms"] = \
+        (time.perf_counter() - t0) * 1e3 / RIDGE_CG_STEPS
+    ev1.record()
+    torch.cuda.synchronize()
+    t["cg_step_ms"] = ev0.elapsed_time(ev1) / RIDGE_CG_STEPS
+    for k, v in t.items():
+        times[f"ridge_S{S}_{k}"] = v
+        print(f"  ridge S={S} {k}: {v:.4f}  [{card}]", flush=True)
+    return launches
+
+
+def spgemm_laplace(ht, dev):
+    """laplace2d(100)^2, the JAX bench's spgemm_laplace10k shape, through
+    the DIA SpGEMM engine in f64 and f32, against scipy."""
+    from hpclinalg_torch.ops import spgemm as spgemm_mod
+
+    L = laplace2d(100)
+    ref = (L @ L).tocsr()
+    ref.sort_indices()
+    for npdt, rtol in ((np.float64, 1e-12), (np.float32, 1e-6)):
+        be = ht.backend_auto(1, dtype=npdt, device=dev)
+        Ld = ht.DistSparseMatrix.from_scipy(L, be)
+        Ch = (Ld @ Ld).to_scipy()
+        ok, err = close(torch.from_numpy(Ch.data.astype(np.float64)),
+                        torch.from_numpy(ref.data), rtol)
+        check(spgemm_mod.get_spgemm_plan(Ld, Ld).dia.ok and ok
+              and np.array_equal(Ch.indptr, ref.indptr)
+              and np.array_equal(Ch.indices, ref.indices),
+              f"laplace2d(100)^2 {npdt.__name__}: DIA SpGEMM engine, scipy's "
+              f"pattern, max_abs_err {err:.3e} (rtol {rtol:g} of max|C|)")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
     import hpclinalg_torch as ht
     from hpclinalg_torch.ops import cuda_build, cuda_dia, cuda_ell
+    from hpclinalg_torch.ops import cuda_ell_resident as k3
     from hpclinalg_torch.ops import spmv as spmv_mod
     from hpclinalg_torch.solver import native
 
@@ -145,10 +423,14 @@ def main():
     timer = Timer(dev)
     times = {}
 
-    # ---- build ----------------------------------------------------------
+    # ---- build: one nvcc per kernel source, all started together ---------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(cuda_build.load_kernel_lib,
+                      ("dia_spmv", "ell_spmv", "ell_resident_spmv")))
     cuda_dia._lib()
     cuda_ell._lib()
+    k3._lib()
     times["build_kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     check(native.load_mf() is not None and native.load_sym() is not None
@@ -162,15 +444,8 @@ def main():
     n = N
     L1000 = laplace2d(K)
     xh = rng.standard_normal(n)
-    errs = {"dia": 0.0, "ell": 0.0, "gather": 0.0}
+    errs = {"dia": 0.0, "ell": 0.0, "gather": 0.0, "resident": 0.0}
     bench = {}
-
-    def engine_inputs(A, x):
-        plan = spmv_mod.get_spmv_plan(A, x)
-        ex = plan.exchange
-        g, pad_to = (x.data, ex.out_pad) if ex.is_identity \
-            else (ex.apply(x.data), 0)
-        return plan, g, pad_to
 
     # ---- phase 1: K1 against its twin -------------------------------------
     print("phase 1: K1 dia_spmv against dia_spmv_plain", flush=True)
@@ -278,19 +553,6 @@ def main():
     b = ht.DistVector.from_global(bh, be)
     xv = ht.DistVector.from_global(xh, be)
 
-    def cg(A, b, steps):
-        x = ht.DistVector.zeros(b.n, b.backend)
-        r, p = b, b
-        for _ in range(steps):
-            Ap = A @ p
-            rr = r.dot(r)
-            alpha = rr / p.dot(Ap)
-            x = x + alpha * p
-            r2 = r - alpha * Ap
-            p = r2 + (r2.dot(r2) / rr) * p
-            r = r2
-        return x, r
-
     A @ xv, Ar @ xv   # plan builds are set-up, outside the counted run
     cg(A, b, 3)       # so is the first use of cuBLAS (the dots) and others
     torch.cuda.synchronize()
@@ -390,6 +652,36 @@ def main():
     for k, v in times.items():
         print(f"  {k}: {v:.4f}  [{card}]")
 
+    # ---- phase 5: K3 against its plain version and K2 ----------------------
+    print("phase 5: K3 ell_resident_spmv against its plain version and K2",
+          flush=True)
+    Ab, bh_r = banded_design(RIDGE_M, RIDGE_N, SEED + 8)
+    N_sc = (Ab.T @ Ab + RIDGE_LAMBDA * sp.eye(RIDGE_N)).tocsr()
+    N_sc.sort_indices()
+    bench3 = {}
+    phase5_k3(ht, dev, Ab, N_sc, rng, errs, bench3)
+
+    # ---- phase 6: the ridge path through the public API, f64 ---------------
+    print(f"phase 6: ridge path, A {RIDGE_M} x {RIDGE_N} (public API, f64)",
+          flush=True)
+    launches6 = {}
+    for S in (1, 4):
+        for key, v in phase6_ridge(ht, dev, Ab, bh_r, N_sc, S, timer, card,
+                                   times).items():
+            launches6[key] = launches6.get(key, 0) + v
+    spgemm_laplace(ht, dev)
+    for key, v in launches6.items():
+        launches[key] = launches.get(key, 0) + v
+    print(f"main-path launches (phases 3 and 6): {launches}")
+    for key, fns in bench3.items():
+        t3, t2, tp = (timer.ms(f) for f in fns)
+        tp2, t22, t32 = (timer.ms(f) for f in reversed(fns))
+        kt[("k3",) + key] = (min(t3, t32), min(tp, tp2), min(t2, t22))
+        name, S, dt = key
+        print(f"  K3 {name} S={S} {str(dt).replace('torch.', '')}: K3 "
+              f"{min(t3, t32):.4f} ms, K2 {min(t2, t22):.4f} ms, plain "
+              f"{min(tp, tp2):.4f} ms  [{card}]")
+
     f64 = torch.float64
     record = {"kernels": [
         {"name": "dia_spmv (K1)", "route": "cuda",
@@ -409,6 +701,12 @@ def main():
          "launches": launches["gather"], "max_abs_err": errs["gather"],
          "ms": kt[("gather", 1, f64)][0],
          "plain_ms": kt[("gather", 1, f64)][1]},
+        {"name": "ell_resident_spmv (K3)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/ell_resident_spmv.cu",
+         "replaces": "hpclinalg/ops/pallas_csr.py:123",
+         "launches": launches["resident"], "max_abs_err": errs["resident"],
+         "ms": kt[("k3", "N", 1, f64)][0],
+         "plain_ms": kt[("k3", "N", 1, f64)][1]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """hpclinalg_torch — the PyTorch/CUDA port of hpclinalg.
 
 Row-partitioned vectors and CSR sparse matrices stored as stacked-shard
-tensors on one device, memoized exchange and SpMV plans, hand-written
-Hopper kernels for the DIA and ELL SpMV engines (``csrc/``), and the host
-C++ multifrontal direct solver. The JAX package ``hpclinalg`` is the
-reference it is tested against; this package never imports it or JAX.
+tensors on one device; memoized exchange, SpMV, transpose, addition and
+SpGEMM plans; hand-written Hopper kernels for the DIA, ELL and resident-x
+ELL SpMV engines (``csrc/``); and the host C++ multifrontal direct solver.
+The JAX package ``hpclinalg`` is the reference it is tested against; this
+package never imports it or JAX.
 """
 
 from .backend import Backend, backend_auto, backends_compatible
@@ -13,6 +14,10 @@ from .hashing import partition_hash, sparse_structural_hash
 from .partition import uniform_partition
 from .vector import DistVector
 from .sparse import DistSparseMatrix
+from .lazy import LazyTranspose
+from .ops.diagonal import diag, dropzeros, tril, triu
+from .ops.repartition import repartition, repartition_vector
+from .ops.sparse_build import spdiagm, speye, sprand_dist, spzeros
 from .solver.api import BackslashCache, Factorization, Symmetric, ldlt, lu, solve
 from .utils.convert import from_reference
 
@@ -20,7 +25,9 @@ __all__ = [
     "Backend", "backend_auto", "backends_compatible",
     "cache_sizes", "check_cache_sizes", "clear_plan_cache",
     "partition_hash", "sparse_structural_hash", "uniform_partition",
-    "DistVector", "DistSparseMatrix",
+    "DistVector", "DistSparseMatrix", "LazyTranspose",
+    "diag", "dropzeros", "tril", "triu", "repartition", "repartition_vector",
+    "spdiagm", "speye", "sprand_dist", "spzeros",
     "BackslashCache", "Factorization", "Symmetric", "ldlt", "lu", "solve",
     "from_reference",
 ]

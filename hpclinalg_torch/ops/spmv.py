@@ -15,6 +15,13 @@ plan is built, with the JAX package's rules and thresholds:
     ``W = min(maxlen, max(ELL_MIN_WIDTH, ceil(ELL_WIDTH_MULT * mean)))``;
     entries past W spill into a COO tail. Kernel K2 (ops/cuda_ell.py,
     csrc/ell_spmv.cu).
+  * resident: the ELL engine's tables with the whole gathered x staged in
+    shared memory, taken when the ELL plan has at least ``MIN_NNZ``
+    entries, at most ``MAX_ELL_BLOWUP`` padding, and a gathered x whose
+    bytes fit the device's shared-memory cap per block — the JAX package's
+    ``ell_policy_would_accept`` (hpclinalg/ops/pallas_csr.py) with shared
+    memory in place of VMEM. Kernel K3 (ops/cuda_ell_resident.py,
+    csrc/ell_resident_spmv.cu).
   * fallback: gather + segment sum (``scatter_add_``), for degenerate
     patterns with no stored entries.
 
@@ -37,6 +44,7 @@ from ..parallel.exchange import ExchangePlan
 from ..solver.native import load_ell
 from .cuda_dia import dia_spmv, pad_trunc
 from .cuda_ell import check_index, ell_spmv
+from .cuda_ell_resident import ell_resident_spmv, smem_cap
 from .gather import gather_exchange_plan
 
 # DIA engine limits: max distinct offsets, and max storage blowup vs nnz
@@ -48,6 +56,10 @@ DENSE_MAX_ELEMS = 1 << 22
 # overflow entries go to a COO tail
 ELL_WIDTH_MULT = 3.0
 ELL_MIN_WIDTH = 4
+# resident engine (pallas_csr.py's MIN_NNZ and MAX_ELL_BLOWUP): enough work
+# to be worth the staging, and bounded ELL padding
+MIN_NNZ = 1 << 20
+MAX_ELL_BLOWUP = 2.5
 
 
 def _distinct_offsets(offs, Lrow, cap):
@@ -83,6 +95,7 @@ class SpMVPlan:
         self.st_hash = A.hash
         self.row_phash = partition_hash(st.row_partition)
         self.ell = False
+        self.resident_cap = 0   # bytes of gathered x K3 may stage; 0: never
 
         # ---- try the DIA decomposition (host metadata) --------------------
         # distinct-offset census via a presence bitmap, with a sampled early
@@ -241,6 +254,22 @@ class SpMVPlan:
             self.ell_tail_rows = be.tensor(trows)
             self.ell_tail_gidx = be.tensor(tgidx)
             self.ell_tail_scat = be.tensor(tscat)
+        if st.nnz >= MIN_NNZ and W * nrows_tot <= MAX_ELL_BLOWUP * st.nnz:
+            self.resident_cap = smem_cap(be.device)
+
+    def engine(self, dtype: torch.dtype) -> str:
+        """The local engine of a product in ``dtype``: "dia", "densify",
+        "resident", "ell" or "segment". Resident needs the gathered x, in
+        that dtype, to fit the shared-memory cap."""
+        if self.offsets is not None:
+            return "dia"
+        if self.densify:
+            return "densify"
+        if not self.ell:
+            return "segment"
+        if self.exchange.out_pad * dtype.itemsize <= self.resident_cap:
+            return "resident"
+        return "ell"
 
 
 def get_spmv_plan(A, x) -> SpMVPlan:
@@ -343,19 +372,21 @@ def matvec(A, x):
         g, pad_to = x.data, ex.out_pad
     else:
         g, pad_to = ex.apply(x.data), 0
-    if plan.offsets is not None:
+    engine = plan.engine(torch.promote_types(A.dtype, x.dtype))
+    if engine == "dia":
         y = dia_spmv(_dia_values(A, plan), g, plan.offsets, plan.bias_lo,
                      plan.bias_hi, pad_to)
-    elif plan.densify:
+    elif engine == "densify":
         blk = _dense_block(A, plan)
         g = pad_trunc(g, pad_to)
         dt = torch.promote_types(blk.dtype, g.dtype)
         y = torch.bmm(blk.to(dt), g.to(dt).unsqueeze(-1)).squeeze(-1)
-    elif plan.ell:
+    elif engine in ("ell", "resident"):
         vals, tvals = _ell_values(A, plan)
         tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
             if plan.ell_Tpad else None
-        y = ell_spmv(vals, plan.ell_cols, g, tail, pad_to)
+        kernel = ell_resident_spmv if engine == "resident" else ell_spmv
+        y = kernel(vals, plan.ell_cols, g, tail, pad_to)
     else:
         y = _segment_spmv(A, pad_trunc(g, pad_to))
     return DistVector._wrap(y, st.row_partition, A.backend, plan.row_phash)

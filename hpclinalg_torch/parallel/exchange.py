@@ -99,49 +99,63 @@ class ExchangePlan:
             sizes = np.asarray(src_sizes, np.int64)
             if (self._src_loc >= sizes[self._src_shard]).any():
                 raise IndexError("send slots beyond the source shard sizes")
-        self.dst = backend.tensor(cat(dst), torch.int64)
-        self._src_flat = {}   # payload length L -> device (1, N) int32 table
+        self._dst_np = cat(dst)
+        self.dst = backend.tensor(self._dst_np, torch.int64)
+        self._src_flat = {}   # (payload length L, slot width k) -> (1, N) int32
+        self._dst_wide = {1: self.dst}  # slot width k -> (N*k,) int64
 
     @property
     def nmoved(self) -> int:
         """Number of (source slot, destination slot) pairs the plan moves."""
         return int(self._src_loc.size)
 
-    def _src(self, L: int) -> torch.Tensor:
-        t = self._src_flat.get(L)
+    def _src(self, L: int, k: int) -> torch.Tensor:
+        t = self._src_flat.get((L, k))
         if t is None:
             S = self.backend.nshards
-            if S * L >= 2 ** 31:
+            if S * L * k >= 2 ** 31:
                 raise ValueError("exchange payload exceeds int32 indexing")
             flat = self._src_shard * L + self._src_loc
+            if k > 1:
+                flat = (flat[:, None] * k + np.arange(k)).reshape(-1)
             t = self.backend.tensor(flat.astype(np.int32)[None])
-            self._src_flat[L] = t
+            self._src_flat[(L, k)] = t
+        return t
+
+    def _dst(self, k: int) -> torch.Tensor:
+        t = self._dst_wide.get(k)
+        if t is None:
+            t = self.backend.tensor(
+                (self._dst_np[:, None] * k + np.arange(k)).reshape(-1))
+            self._dst_wide[k] = t
         return t
 
     def apply(self, x: torch.Tensor, base: torch.Tensor | None = None,
               add: bool = False) -> torch.Tensor:
-        """x: stacked shards (S, L). Returns (S, out_pad) with the exchanged
-        payload scattered to its destination slots; remaining slots are
-        zero, or copied from ``base`` (S, out_pad) when provided.
-        ``add=True`` scatter-adds (assembly patterns with overlapping
-        destinations)."""
+        """x: stacked shards (S, L, ...): each slot may carry a payload of
+        trailing axes, which moves whole. Returns (S, out_pad, ...) with the
+        exchanged payload scattered to its destination slots; remaining
+        slots are zero, or copied from ``base`` (S, out_pad, ...) when
+        provided. ``add=True`` scatter-adds (assembly patterns with
+        overlapping destinations)."""
         S = self.backend.nshards
-        if x.dim() != 2 or x.shape[0] != S:
-            raise ValueError(f"exchange payload must be (S={S}, L), got "
+        if x.dim() < 2 or x.shape[0] != S:
+            raise ValueError(f"exchange payload must be (S={S}, L, ...), got "
                              f"{tuple(x.shape)}")
-        L = x.shape[1]
+        L, trail = x.shape[1], tuple(x.shape[2:])
+        k = int(np.prod(trail, dtype=np.int64))
         if L < self.src_need:
             raise IndexError(f"payload length {L} < slots read {self.src_need}")
         if base is not None:
-            if base.shape != (S, self.out_pad):
-                raise ValueError(f"base must be {(S, self.out_pad)}")
+            if tuple(base.shape) != (S, self.out_pad) + trail:
+                raise ValueError(f"base must be {(S, self.out_pad) + trail}")
             out = base.to(x.dtype).reshape(-1).clone()
         else:
-            out = x.new_zeros(S * self.out_pad)
-        if self.nmoved:
-            vals = gather(x.reshape(1, S * L), self._src(L))[0]
+            out = x.new_zeros(S * self.out_pad * k)
+        if self.nmoved and k:
+            vals = gather(x.reshape(1, S * L * k), self._src(L, k))[0]
             if add:
-                out.index_add_(0, self.dst, vals)
+                out.index_add_(0, self._dst(k), vals)
             else:
-                out.index_copy_(0, self.dst, vals)
-        return out.reshape(S, self.out_pad)
+                out.index_copy_(0, self._dst(k), vals)
+        return out.reshape((S, self.out_pad) + trail)

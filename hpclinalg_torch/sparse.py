@@ -17,6 +17,7 @@ holds indices into it.
 
 from __future__ import annotations
 
+import weakref
 from functools import cached_property
 
 import numpy as np
@@ -87,9 +88,40 @@ class SparseStructure:
             out[s, : self.nnz_local[s]] = self.colval[s]
         return self.backend.tensor(out)
 
+    @cached_property
+    def global_coo(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Per shard: (global rows, global cols) of the stored values in
+        storage order — the common currency of symbolic planning."""
+        out = []
+        for s in range(len(self.indptr)):
+            rows = np.repeat(np.arange(len(self.indptr[s]) - 1, dtype=np.int64),
+                             np.diff(self.indptr[s])) + self.row_partition[s]
+            out.append((rows, self.col_indices[s][self.colval[s]]))
+        return out
+
+    @cached_property
+    def nnz_mask_dev(self) -> torch.Tensor:
+        """(S, NNZpad) bool: True on stored values, False on padding."""
+        m = np.arange(self.NNZpad)[None, :] < self.nnz_local[:, None]
+        return self.backend.tensor(m)
+
     @property
     def shape(self):
         return (int(self.row_partition[-1]), int(self.col_partition[-1]))
+
+
+def csr_from_rows(local_rows: np.ndarray, nrows: int) -> np.ndarray:
+    """indptr of a CSR block whose stored values, in order, lie in the
+    (sorted) local rows ``local_rows``."""
+    return np.concatenate([[0], np.cumsum(np.bincount(
+        local_rows, minlength=nrows))]).astype(np.int64)
+
+
+def compress_cols(gcols: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(col_indices, colval): the sorted distinct global columns and each
+    stored value's index into them."""
+    ci = np.unique(gcols)
+    return ci, np.searchsorted(ci, gcols).astype(np.int32)
 
 
 def _structure_from_local_csr(parts, ncols, backend, col_partition=None):
@@ -145,9 +177,19 @@ class DistSparseMatrix:
         self.structure = structure
         self.nzval = nzval  # (S, NNZpad), padding zero
         self.backend = backend
+        # the materialised transpose, cached both ways (ref sparse.jl:333):
+        # a matrix holds its transpose, the transpose a weakref back, so no
+        # reference cycle keeps their device memory alive until the cyclic
+        # garbage collector runs
+        self._transpose = None
         self._issym: bool | None = None
 
     # -- identity / metadata -------------------------------------------------
+    @property
+    def cached_transpose(self) -> "DistSparseMatrix | None":
+        t = self._transpose
+        return t() if isinstance(t, weakref.ref) else t
+
     @property
     def hash(self) -> str:
         return self.structure.hash
@@ -198,6 +240,18 @@ class DistSparseMatrix:
         st = _structure_from_local_csr(parts, n, backend, col_partition)
         nz = _pad_stack_nzval(vals, st.NNZpad,
                               resolve_dtype(backend, A.dtype, dtype))
+        return DistSparseMatrix(st, backend.tensor(nz), backend)
+
+    @staticmethod
+    def from_local_csr(parts, ncols: int, backend: Backend, col_partition=None,
+                       dtype=None) -> "DistSparseMatrix":
+        """Build from per-shard (indptr, global col indices, values) triples
+        (ref: HPCSparseMatrix_local, sparse.jl:454-525)."""
+        st = _structure_from_local_csr([(ip, gj) for ip, gj, _v in parts],
+                                       ncols, backend, col_partition)
+        vals = [np.asarray(v) for _ip, _gj, v in parts]
+        nz = _pad_stack_nzval(vals, st.NNZpad, resolve_dtype(
+            backend, np.result_type(*vals), dtype))
         return DistSparseMatrix(st, backend.tensor(nz), backend)
 
     def with_values(self, nzval: torch.Tensor) -> "DistSparseMatrix":
@@ -254,14 +308,111 @@ class DistSparseMatrix:
                 self._issym = (A != A.T).nnz == 0
         return self._issym
 
+    # -- elementwise / scalar (zero-preserving; ref sparse.jl:2261-2569) -------
+    def _map_nz(self, fn, zero_preserving: bool = True) -> "DistSparseMatrix":
+        """Map the stored values; a map that may not keep zeros is masked
+        back to zero on the padding slots."""
+        out = fn(self.nzval)
+        if not zero_preserving:
+            out = torch.where(self.structure.nnz_mask_dev, out,
+                              torch.zeros((), dtype=out.dtype, device=out.device))
+        return self.with_values(out)
+
+    def __mul__(self, o):
+        from .vector import _finite_scalar
+
+        if isinstance(o, (int, float, complex, np.number)):
+            return self._map_nz(lambda v: v * o,
+                                zero_preserving=_finite_scalar(o))
+        return NotImplemented
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        from .vector import _finite_scalar
+
+        if isinstance(o, (int, float, complex, np.number)):
+            return self._map_nz(lambda v: v / o,
+                                zero_preserving=_finite_scalar(o) and o != 0)
+        return NotImplemented
+
+    def __neg__(self):
+        return self._map_nz(torch.neg)
+
     # -- operators --------------------------------------------------------------
     def __matmul__(self, o):
-        from .ops import spmv
+        from .lazy import LazyTranspose
+        from .ops import spgemm, spmv
         from .vector import DistVector
 
         if isinstance(o, DistVector):
             return spmv.matvec(self, o)
+        if isinstance(o, DistSparseMatrix):
+            return spgemm.spgemm(self, o)
+        if isinstance(o, LazyTranspose) and isinstance(o.parent, DistSparseMatrix):
+            return spgemm.spgemm(self, o.materialize())
         return NotImplemented
+
+    def __add__(self, o):
+        return self._add(o, 1)
+
+    def __sub__(self, o):
+        return self._add(o, -1)
+
+    def _add(self, o, beta):
+        """self + beta * o (ref: Base.:+/-, sparse.jl:1405/1454); a lazy
+        transpose operand is materialised first."""
+        from .lazy import LazyTranspose
+        from .ops import addition
+
+        if isinstance(o, LazyTranspose) and isinstance(o.parent, DistSparseMatrix):
+            o = o.materialize()
+        if isinstance(o, DistSparseMatrix):
+            return addition.add(self, o, 1, beta)
+        return NotImplemented
+
+    def add_identity(self, lam=1.0) -> "DistSparseMatrix":
+        """A + lam*I (ref: IdentityAdditionPlan, sparse.jl:3704-4060)."""
+        from .ops import addition
+
+        return addition.add_identity(self, lam)
+
+    @property
+    def T(self):
+        from .lazy import LazyTranspose
+
+        return LazyTranspose(self)
+
+    def transpose_materialized(self) -> "DistSparseMatrix":
+        from .ops import transpose
+
+        return transpose.materialize_transpose(self)
+
+    # -- structural API (ref sparse.jl:2755-2971, 4098-4573) --------------------
+    def diag(self, k: int = 0):
+        from .ops import diagonal
+
+        return diagonal.diag(self, k)
+
+    def triu(self, k: int = 0) -> "DistSparseMatrix":
+        from .ops import diagonal
+
+        return diagonal.triu(self, k)
+
+    def tril(self, k: int = 0) -> "DistSparseMatrix":
+        from .ops import diagonal
+
+        return diagonal.tril(self, k)
+
+    def dropzeros(self, tol: float = 0.0) -> "DistSparseMatrix":
+        from .ops import diagonal
+
+        return diagonal.dropzeros(self, tol)
+
+    def repartition(self, new_row_partition) -> "DistSparseMatrix":
+        from .ops import sparse_repartition
+
+        return sparse_repartition.repartition_sparse(self, new_row_partition)
 
     def __repr__(self):
         return (f"DistSparseMatrix(shape={self.shape}, nnz={self.nnz()}, "

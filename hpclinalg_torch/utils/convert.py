@@ -16,13 +16,31 @@ from ..sparse import DistSparseMatrix, SparseStructure
 from ..vector import DistVector
 
 
-def from_reference(backend: Backend, *, data=None, partition=None,
+def _reference_state(ref) -> dict:
+    """The keyword arguments of ``from_reference`` for a container of the
+    JAX package — any DistVector or DistSparseMatrix, including one produced
+    by its transpose, addition or SpGEMM plans — read by duck typing: its
+    device arrays go through ``np.asarray`` and its host structure arrays
+    are taken as they are, so the structure and its hash carry over."""
+    st = getattr(ref, "structure", None)
+    if st is None:
+        return dict(data=np.asarray(ref.data), partition=np.asarray(ref.partition))
+    return dict(nzval=np.asarray(ref.nzval), indptr=st.indptr,
+                colval=st.colval, col_indices=st.col_indices,
+                row_partition=st.row_partition,
+                col_partition=st.col_partition, ncols=ref.shape[1])
+
+
+def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
                    nzval=None, indptr=None, colval=None, col_indices=None,
                    row_partition=None, col_partition=None, ncols=None):
-    """A DistVector from ``data`` (S, L) and ``partition``, or a
-    DistSparseMatrix from ``nzval`` (S, NNZpad) and the SparseStructure
-    arrays (per-shard ``indptr``, ``colval``, ``col_indices``, the two
-    partitions and ``ncols``)."""
+    """The port's container for a JAX package container ``ref`` (see
+    ``_reference_state``), or a DistVector from ``data`` (S, L) and
+    ``partition``, or a DistSparseMatrix from ``nzval`` (S, NNZpad) and the
+    SparseStructure arrays (per-shard ``indptr``, ``colval``,
+    ``col_indices``, the two partitions and ``ncols``)."""
+    if ref is not None:
+        return from_reference(backend, **_reference_state(ref))
     if data is not None:
         if partition is None:
             raise ValueError("a vector needs its partition")

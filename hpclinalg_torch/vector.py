@@ -196,13 +196,26 @@ class DistVector:
                                                          device=out.device))
 
     def _aligned(self, other: "DistVector") -> "DistVector":
+        """``other`` on this vector's partition: binary operations align a
+        mismatched right operand by repartitioning it."""
         if not backends_compatible(self.backend, other.backend):
             raise ValueError("incompatible backends")
-        if other.partition_hash != self.partition_hash:
-            raise NotImplementedError(
-                "operands on different partitions need repartitioning, "
-                "which arrives with the repartition slice of the port")
-        return other
+        if other.partition_hash == self.partition_hash:
+            return other
+        return other.repartition(self.partition)
+
+    def repartition(self, new_partition: np.ndarray) -> "DistVector":
+        """Ref: repartition(v, partition) (vectors.jl:712)."""
+        from .ops.repartition import repartition_vector
+
+        return repartition_vector(self, new_partition)
+
+    @property
+    def T(self):
+        """Lazy row vector: ``v.T @ w`` and ``v.T @ A`` (ref vectors.jl:738)."""
+        from .lazy import LazyTranspose
+
+        return LazyTranspose(self)
 
     def _scalar_map(self, fn, o) -> "DistVector":
         """Elementwise map with a scalar: a host number that keeps zeros

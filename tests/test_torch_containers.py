@@ -90,8 +90,9 @@ def test_vector_mismatch_errors():
     be = ht.backend_auto(2, device="cpu")
     a = ht.DistVector.from_global(np.ones(10), be)
     b = ht.DistVector.from_global(np.ones(10), be, partition=[0, 3, 10])
-    with pytest.raises(NotImplementedError):
-        a + b
+    c = a + b   # a mismatched partition is aligned, not an error
+    assert np.array_equal(c.partition, a.partition)
+    np.testing.assert_array_equal(c.to_numpy(), np.full(10, 2.0))
     with pytest.raises(ValueError):
         a + ht.DistVector.from_global(np.ones(10), ht.backend_auto(
             5, device="cpu"))

@@ -6,7 +6,12 @@ are handed to the port through ``from_reference`` as numpy arrays; both
 then take 20 more steps in f64 and must agree to rtol 1e-9 (CG amplifies
 last-bit differences in the reductions a little each step). The port's
 step uses only the public API. Then ``ldlt(A).solve(b)`` of both agree to
-1e-10."""
+1e-10.
+
+The second path is the sparse ridge regression of ``chip_smoke.py`` cut to
+m = 20,000 observations and n = 512 unknowns, from the same generator:
+At = A.T.materialize(), N = (At @ A).add_identity(lambda), rhs = At @ b, CG
+on N, ldlt(N).solve(rhs) and A @ x, through both packages and scipy."""
 
 import jax
 import numpy as np
@@ -16,7 +21,10 @@ import torch
 
 import hpclinalg as hl
 import hpclinalg_torch as ht
+import hpclinalg_torch.ops.cuda_ell_resident as tk3
+import hpclinalg_torch.ops.spmv as tspmv
 from __graft_entry__ import _cg_step_fn, _laplace2d
+from chip_smoke import RIDGE_CG_RTOL, RIDGE_LAMBDA, banded_design
 
 torch.set_num_threads(1)
 
@@ -90,3 +98,76 @@ def test_from_reference_rejects_incomplete_state():
     state["ncols"] = 6
     with pytest.raises(ValueError):
         ht.from_reference(be, **state)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_ridge_path_matches_reference(S, monkeypatch):
+    """At the cut size N is 512 x 512 and A has 8*10^4 entries, so the
+    engine thresholds are cut with it, in this test only: densify off (N
+    would be a dense block), MIN_NNZ 2^14 (A and N are under 2^20) and the
+    shared-memory cap scaled by n / 16384 (At's gathered x, 20,008 slots,
+    would otherwise fit). The engines are then those of the full size:
+    resident for N @ p and A @ x, ELL for At @ b."""
+    m, n = 20_000, 512
+    A, bh = banded_design(m, n, seed=8)
+    monkeypatch.setattr(tspmv, "DENSE_MAX_ELEMS", 0)
+    monkeypatch.setattr(tspmv, "MIN_NNZ", 1 << 14)
+    monkeypatch.setattr(tk3, "H100_SMEM_CAP", tk3.H100_SMEM_CAP * n // 16384)
+    ht.clear_plan_cache("vector_plan")
+    f64 = torch.float64
+
+    bet = ht.backend_auto(S, device="cpu")
+    At = ht.DistSparseMatrix.from_scipy(A, bet)
+    b = ht.DistVector.from_global(bh, bet)
+    T = At.T.materialize()
+    N = (T @ At).add_identity(RIDGE_LAMBDA)
+    rhs = T @ b
+    xk, _ = _cg(N, rhs, 50)
+    x = ht.ldlt(N).solve(rhs)
+    y = At @ x
+    assert tspmv.get_spmv_plan(N, rhs).engine(f64) == "resident"
+    assert tspmv.get_spmv_plan(T, b).engine(f64) == "ell"
+    assert tspmv.get_spmv_plan(At, x).engine(f64) == "resident"
+
+    bej = hl.backend_auto(nshards=S, dtype=np.float64)
+    Aj = hl.DistSparseMatrix.from_scipy(A, bej)
+    Tj = Aj.transpose_materialized()
+    Nj = (Tj @ Aj).add_identity(RIDGE_LAMBDA)
+    rhs_j = Tj @ hl.DistVector.from_global(bh, bej)
+    x_j = hl.ldlt(Nj).solve(rhs_j).to_numpy()
+    assert T.hash == Tj.hash and N.hash == Nj.hash
+    for a in ("indptr", "col_indices", "colval"):
+        for u, v in zip(getattr(N.structure, a), getattr(Nj.structure, a)):
+            np.testing.assert_array_equal(u, v)
+
+    def close(got, want, rtol):
+        np.testing.assert_allclose(got, want, rtol=rtol,
+                                   atol=rtol * abs(want).max())
+
+    Nref = (A.T @ A + RIDGE_LAMBDA * sp.eye(n)).tocsr()
+    close(N.nzval.numpy(), np.asarray(Nj.nzval), 1e-12)
+    close(N.to_scipy().toarray(), Nref.toarray(), 1e-12)
+    close(rhs.to_numpy(), rhs_j.to_numpy(), 1e-12)
+    close(rhs.to_numpy(), A.T @ bh, 1e-12)
+    xh = x.to_numpy()
+    close(xh, x_j, 1e-10)
+    r = Nref @ xh - A.T @ bh
+    assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(A.T @ bh)
+    # N's condition number is near 3: 50 CG steps reach the direct solution
+    assert np.linalg.norm(xk.to_numpy() - xh) <= RIDGE_CG_RTOL * np.linalg.norm(xh)
+    close(y.to_numpy(), A @ xh, 1e-12)
+
+    sizes = ht.cache_sizes()          # new values, same pattern: no new plan
+    A2 = At.with_values(At.nzval * 1.5)
+    N2 = A2.T.materialize() @ A2
+    assert ht.cache_sizes() == sizes and N2.structure is N.structure
+    close(N2.to_scipy().toarray(), 2.25 * (A.T @ A).toarray(), 1e-12)
+    ht.clear_plan_cache("vector_plan")
+
+
+def _cg(A, b, steps):
+    x = ht.DistVector.zeros(b.n, b.backend)
+    r, p = b, b
+    for _ in range(steps):
+        x, r, p = cg_step(A, x, r, p)
+    return x, r
