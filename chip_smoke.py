@@ -29,7 +29,22 @@ hpclinalg_torch/csrc, then:
      then the laplace2d(100)^2 SpGEMM (DIA engine) in f64 and f32; and
      times K3, K2 and the plain version on each phase-5 case, the SpGEMM
      with and without its plan build, the transpose, add_identity, the CG
-     step on N and the host factor + solve.
+     step on N and the host factor + solve;
+  7. runs the probe tools (python -m hpclinalg_torch.tools.*) at their own
+     sizes in f32, with the launch counters reset just before and read just
+     after: proto_dia (K1 on laplace2d(2000) against scipy), dia_variants
+     at k = 1000 and 2000 (K1 through the plan and raw, K4 dia_flat_spmv v4
+     against its plain version and scipy, v1 against its plain version, K4
+     table_stream skern, v3 and v5 against their plain versions) and
+     probe_kpayload at k = 64, F = 8, 4096 tiles (K5 bit-exact);
+  8. drives the dense path through the public API in f64 at S = 1 and 4:
+     the random 10^6 x 8 matrix times a 10^6 x 64 DistDenseMatrix against
+     scipy (and in f32), laplace2d(1000) times a 10^6 x 8 block, the
+     multi-response ridge (R = At @ Y, Xh = solve(N, R) from the host
+     multi-RHS sweep with its residual checked through N @ Xh, Xh.T @ Xh,
+     A @ Xh - Y) and the dense operations D @ v, D.T @ w, D @ E, D @ B on
+     a 10^4 x 512 D; and times the SpMMs, At @ Y and the multi-RHS solve,
+     with the peak device memory of the SpMMs.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -45,6 +60,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from hpclinalg_torch.tools.timing import Timer
 
 SEED = 0
 N = 1_000_000          # rows of the SpMV matrices (laplace2d(K): N = K^2)
@@ -137,30 +154,6 @@ def close(a, b, rtol):
     return err <= rtol * max(scale, 1e-300), err
 
 
-class Timer:
-    """Median kernel time over 20 launches, CUDA events around each launch,
-    a 256 MiB read before each so L2 (50 MB) starts cold. (A write would
-    leave dirty lines whose write-back lands inside the timed launch.)"""
-
-    def __init__(self, dev):
-        self.flush = torch.ones(64 << 20, dtype=torch.float32, device=dev)
-
-    def ms(self, fn, reps=20, warm=3):
-        for _ in range(warm):
-            fn()
-        out = []
-        for _ in range(reps):
-            self.flush.sum()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return float(np.median(out))
-
-
 def device_us(fn):
     """Device time of the kernels and copies that ``fn`` launches, from a
     torch.profiler trace: the union of their intervals in microseconds, and
@@ -180,6 +173,24 @@ def device_us(fn):
             busy += b - max(a, end)
             end = b
     return busy, len(spans)
+
+
+def device_kernels(fn, top=4):
+    """The kernels and copies ``fn`` launches, their device time summed by
+    name over a torch.profiler trace: [(name, us)], largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    tot = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
+                                                   - e.time_range.start)
+    return sorted(tot.items(), key=lambda kv: -kv[1])[:top]
 
 
 def cg(A, b, steps):
@@ -403,12 +414,177 @@ def spgemm_laplace(ht, dev):
               f"pattern, max_abs_err {err:.3e} (rtol {rtol:g} of max|C|)")
 
 
+PROBE_RTOL = 1e-5      # the probes run in f32, as the TPU scripts do
+SPMM_K = 64            # columns of bench.py's SpMM (spmm_random_1m_k64_ms)
+SPMM_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+DENSE_M, DENSE_N = 10_000, 512
+RIDGE_RES_TOL = 1e-10
+
+
+def phase7_probes():
+    """The probe tools at their own sizes; returns the launches of K1, K4
+    and K5 they made, and the results of dia_variants and probe_kpayload."""
+    from hpclinalg_torch.ops import cuda_dia, cuda_dia_probe as k4
+    from hpclinalg_torch.ops import cuda_kpayload as k5
+    from hpclinalg_torch.tools import dia_variants, probe_kpayload, proto_dia
+
+    counted = {"dia": cuda_dia.dia_spmv, "dia_flat": k4.dia_flat_spmv,
+               "stream": k4.table_stream, "kpayload": k5.kpayload}
+    torch.cuda.synchronize()
+    for f in counted.values():
+        f.launches = 0
+    proto = proto_dia.main([])
+    dv = dia_variants.main(["--k", "1000", "2000"])
+    kp = probe_kpayload.main([str(SPMM_K), "8", "4096"])
+    torch.cuda.synchronize()
+    launches = {key: f.launches for key, f in counted.items()}
+    print(f"  probe launches: {launches}", flush=True)
+    check(proto["scipy_rel_err"] <= PROBE_RTOL,
+          f"proto_dia: K1 on laplace2d(2000) against scipy, rel err "
+          f"{proto['scipy_rel_err']:.2e} (<= {PROBE_RTOL:g})")
+    for k, rows in dv.items():
+        for name, rec in rows.items():
+            if "rel_err" in rec:
+                check(rec["rel_err"] <= PROBE_RTOL,
+                      f"dia_variants k={k} {name}: kernel against its plain "
+                      f"version, max_abs_err {rec['err']:.3e}")
+            if "scipy_rel_err" in rec:
+                check(rec["scipy_rel_err"] <= PROBE_RTOL,
+                      f"dia_variants k={k} {name}: against scipy, rel err "
+                      f"{rec['scipy_rel_err']:.2e}")
+    check(kp["exact"], f"probe_kpayload k={SPMM_K} F=8: K5 is bit-exact")
+    check(all(v > 0 for v in launches.values()),
+          "the probes launched K1, K4 (both kernels) and K5")
+    return launches, dv, kp
+
+
+def peak_mb(fn):
+    """(result of fn, device memory it allocated at its peak above what
+    was allocated before, in MB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times):
+    """The dense path through the public API, f64 (and the random SpMM in
+    f32), at S = 1 and 4."""
+    from hpclinalg_torch.ops import spmv as spmv_mod
+
+    rng = np.random.default_rng(SEED + 9)
+    X = rng.standard_normal((N, SPMM_K))
+    ref_r8 = R8 @ X
+    X8 = rng.standard_normal((N, 8))
+    ref_l = L1000 @ X8
+    Y = rng.standard_normal((RIDGE_M, SPMM_K))
+    AtY = Ab.T @ Y
+    D = rng.standard_normal((DENSE_M, DENSE_N))
+    E = rng.standard_normal((DENSE_N, SPMM_K))
+    v = rng.standard_normal(DENSE_N)
+    w = rng.standard_normal(DENSE_M)
+    Bsp = random_cols(DENSE_N, 2048, 16, SEED + 10)
+    for S in (1, 4):
+        for dt in (torch.float64, torch.float32):
+            npdt = np.float64 if dt == torch.float64 else np.float32
+            be = ht.backend_auto(S, dtype=npdt, device=dev)
+            Ar = ht.DistSparseMatrix.from_scipy(R8, be)
+            Xd = ht.DistDenseMatrix.from_global(X, be)
+            C, mb = peak_mb(lambda: Ar @ Xd)
+            plan = spmv_mod.get_spmm_plan(Ar, Xd)
+            ok, err = close(torch.from_numpy(C.to_numpy()).double(),
+                            torch.from_numpy(ref_r8), SPMM_RTOL[dt])
+            check(ok and plan.ell and isinstance(C, ht.DistDenseMatrix),
+                  f"S={S} {dt}: random {N} x 8 @ {N} x {SPMM_K} on the ELL "
+                  f"engine (W={plan.ell_W}) against scipy, max_abs_err "
+                  f"{err:.3e} (rtol {SPMM_RTOL[dt]:g} of max|C|)")
+            tag = f"S{S}_{str(dt).replace('torch.', '')}"
+            times[f"spmm_random_k64_{tag}_ms"] = timer.ms(lambda: Ar @ Xd)
+            times[f"spmm_random_k64_{tag}_peak_mb"] = mb
+            if dt == torch.float64:
+                for name, us in device_kernels(lambda: Ar @ Xd):
+                    print(f"  SpMM S={S} f64 device time: {us:9.1f} us  "
+                          f"{name[:70]}", flush=True)
+            del C, Xd
+        be = ht.backend_auto(S, dtype=np.float64, device=dev)
+        Ld = ht.DistSparseMatrix.from_scipy(L1000, be)
+        Cl = Ld @ ht.DistDenseMatrix.from_global(X8, be)
+        ok, err = close(torch.from_numpy(Cl.to_numpy()),
+                        torch.from_numpy(ref_l), 1e-12)
+        check(ok and spmv_mod.get_spmm_plan(Ld, Cl).offsets is not None,
+              f"S={S}: laplace2d({K}) @ {N} x 8 on the DIA engine against "
+              f"scipy, max_abs_err {err:.3e}")
+
+        # the multi-response ridge on phase 6's A and N
+        Ad = ht.DistSparseMatrix.from_scipy(Ab, be)
+        At = Ad.T.materialize()
+        Nm = (At @ Ad).add_identity(RIDGE_LAMBDA)
+        Yd = ht.DistDenseMatrix.from_global(Y, be)
+        R, mb = peak_mb(lambda: At @ Yd)
+        ok, err = close(torch.from_numpy(R.to_numpy()), torch.from_numpy(AtY),
+                        1e-12)
+        check(ok and spmv_mod.get_spmm_plan(At, Yd).ell,
+              f"S={S}: R = At @ Y on the ELL engine against scipy, "
+              f"max_abs_err {err:.3e}")
+        times[f"ridge_S{S}_AtY_ms"] = timer.ms(lambda: At @ Yd)
+        for name, us in device_kernels(lambda: At @ Yd):
+            print(f"  At @ Y S={S} device time: {us:9.1f} us  {name[:70]}",
+                  flush=True)
+        times[f"ridge_S{S}_AtY_peak_mb"] = mb
+        ht.clear_plan_cache("backslash")
+        Xh, times[f"ridge_S{S}_multi_rhs_first_s"] = timed_s(
+            lambda: ht.solve(Nm, R))
+        _, times[f"ridge_S{S}_multi_rhs_cached_s"] = timed_s(
+            lambda: ht.solve(Nm, R))
+        res = float((Nm @ Xh - R).norm() / R.norm())
+        check(isinstance(Xh, ht.DistDenseMatrix)
+              and np.array_equal(Xh.row_partition, Nm.row_partition)
+              and res <= RIDGE_RES_TOL,
+              f"S={S}: Xh = solve(N, R) is a DistDenseMatrix on N's rows; "
+              f"|N Xh - R| / |R| = {res:.3e} (<= {RIDGE_RES_TOL:g})")
+        Xn = Xh.to_numpy()
+        G = Xh.T @ Xh
+        ok, err = close(torch.from_numpy(G.to_numpy()),
+                        torch.from_numpy(Xn.T @ Xn), 1e-12)
+        check(ok and G.shape == (SPMM_K, SPMM_K),
+              f"S={S}: Xh.T @ Xh against numpy, max_abs_err {err:.3e}")
+        Res = Ad @ Xh - Yd
+        ok, err = close(torch.from_numpy(Res.to_numpy()),
+                        torch.from_numpy(Ab @ Xn - Y), 1e-12)
+        check(ok, f"S={S}: A @ Xh - Y against scipy, max_abs_err {err:.3e}")
+        del Yd, R, Res
+
+        # dense operations on a 10^4 x 512 D
+        Dd = ht.DistDenseMatrix.from_global(D, be)
+        got = {
+            "D @ v": ((Dd @ ht.DistVector.from_global(v, be)).to_numpy(),
+                      D @ v),
+            "D.T @ w": ((Dd.T @ ht.DistVector.from_global(w, be)).to_numpy(),
+                        D.T @ w),
+            "D @ E": ((Dd @ ht.DistDenseMatrix.from_global(E, be)).to_numpy(),
+                      D @ E),
+            "D @ B_sp": ((Dd @ ht.DistSparseMatrix.from_scipy(Bsp, be))
+                         .to_numpy(), D @ Bsp.toarray()),
+        }
+        for what, (a, b) in got.items():
+            ok, err = close(torch.from_numpy(a), torch.from_numpy(b), 1e-12)
+            check(ok, f"S={S}: {what} against numpy, max_abs_err {err:.3e}")
+    for k_, v_ in times.items():
+        if k_.startswith(("spmm_", "ridge_S1_AtY", "ridge_S4_AtY",
+                          "ridge_S1_multi", "ridge_S4_multi")):
+            print(f"  {k_}: {v_:.4f}  [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
     import hpclinalg_torch as ht
     from hpclinalg_torch.ops import cuda_build, cuda_dia, cuda_ell
+    from hpclinalg_torch.ops import cuda_dia_probe as k4
     from hpclinalg_torch.ops import cuda_ell_resident as k3
+    from hpclinalg_torch.ops import cuda_kpayload as k5
     from hpclinalg_torch.ops import spmv as spmv_mod
     from hpclinalg_torch.solver import native
 
@@ -425,12 +601,12 @@ def main():
 
     # ---- build: one nvcc per kernel source, all started together ---------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(cuda_build.load_kernel_lib,
-                      ("dia_spmv", "ell_spmv", "ell_resident_spmv")))
-    cuda_dia._lib()
-    cuda_ell._lib()
-    k3._lib()
+    sources = ("dia_spmv", "ell_spmv", "ell_resident_spmv", "dia_probe",
+               "kpayload")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cuda_build.load_kernel_lib, sources))
+    for mod in (cuda_dia, cuda_ell, k3, k4, k5):
+        mod._lib()
     times["build_kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     check(native.load_mf() is not None and native.load_sym() is not None
@@ -682,7 +858,20 @@ def main():
               f"{min(t3, t32):.4f} ms, K2 {min(t2, t22):.4f} ms, plain "
               f"{min(tp, tp2):.4f} ms  [{card}]")
 
+    # ---- phase 7: the probe tools ------------------------------------------
+    print(f"phase 7: the probes (python -m hpclinalg_torch.tools.*, f32) on "
+          f"{card}", flush=True)
+    launches7, dv, kp = phase7_probes()
+    launches["dia"] += launches7["dia"]
+
+    # ---- phase 8: the dense path through the public API, f64 ---------------
+    print("phase 8: dense path (SpMM, multi-response ridge, dense ops; public "
+          "API, f64)", flush=True)
+    phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times)
+
     f64 = torch.float64
+    v4 = dv[2000]["v4"]
+    streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
     record = {"kernels": [
         {"name": "dia_spmv (K1)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/dia_spmv.cu",
@@ -707,6 +896,23 @@ def main():
          "launches": launches["resident"], "max_abs_err": errs["resident"],
          "ms": kt[("k3", "N", 1, f64)][0],
          "plain_ms": kt[("k3", "N", 1, f64)][1]},
+        {"name": "dia_flat_spmv (K4)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/dia_probe.cu",
+         "replaces": "tools/probe_dia_kernels.py:222",
+         "launches": launches7["dia_flat"],
+         "max_abs_err": max(dv[k][v]["err"] for k in dv for v in ("v4", "v1")),
+         "ms": v4["ms"], "plain_ms": v4["plain_ms"]},
+        {"name": "table_stream (K4)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/dia_probe.cu",
+         "replaces": "tools/probe_dia_kernels.py:169",
+         "launches": launches7["stream"],
+         "max_abs_err": max(r["err"] for r in streams),
+         "ms": dv[2000]["v3"]["ms"], "plain_ms": dv[2000]["v3"]["plain_ms"]},
+        {"name": "kpayload (K5)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/kpayload.cu",
+         "replaces": "tools/probe_kpayload.py:40",
+         "launches": launches7["kpayload"], "max_abs_err": kp["err"],
+         "ms": kp["ms"], "plain_ms": kp["plain_ms"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -45,3 +45,12 @@ def sparse_structural_hash(
     for s in range(len(indptr)):
         h.update(_h(indptr[s], col_indices[s], colval[s]).encode())
     return h.hexdigest()
+
+
+def dense_structural_hash(row_partition: np.ndarray, ncols: int) -> str:
+    """Identity of a distributed dense matrix structure: its row partition
+    and its column count."""
+    h = hashlib.blake2b(digest_size=DIGEST_SIZE)
+    h.update(partition_hash(row_partition).encode())
+    h.update(np.int64(ncols).tobytes())
+    return h.hexdigest()

@@ -1,9 +1,11 @@
-"""Repartitioning: redistributing vector rows onto a new partition.
+"""Repartitioning: redistributing vector entries and dense rows onto a new
+partition.
 
 Port of the JAX package's ``hpclinalg/ops/repartition.py`` (ref:
-VectorRepartitionPlan, vectors.jl:491-712). Both partitions are host
-metadata, so the contiguous overlaps are numpy; the value movement is one
-static ExchangePlan (a gather plus a scatter on the stacked tensor).
+VectorRepartitionPlan, vectors.jl:491-712; DenseRepartitionPlan,
+dense.jl:1571-1761). Both partitions are host metadata, so the contiguous
+overlaps are numpy; the value movement is one static ExchangePlan (a
+gather plus a scatter on the stacked tensor).
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ def get_repartition_plan(backend: Backend, p_src: np.ndarray,
 
 
 def repartition(x, new_partition: np.ndarray):
-    """A DistVector's entries or a DistSparseMatrix's rows on a new
-    partition (ref: repartition, vectors.jl:712 and sparse.jl:4573)."""
+    """A DistVector's entries, or a DistSparseMatrix's or DistDenseMatrix's
+    rows, on a new partition (ref: repartition, vectors.jl:712 and
+    sparse.jl:4573)."""
     return x.repartition(new_partition)
 
 
@@ -59,3 +62,18 @@ def repartition_vector(v, new_partition: np.ndarray):
         return v
     plan = get_repartition_plan(v.backend, v.partition, p2)
     return DistVector(plan.apply(v.data), p2, v.backend)
+
+
+def repartition_dense(A, new_partition: np.ndarray):
+    """Ref: DenseRepartitionPlan (dense.jl:1571-1761). Rows move with their
+    whole (ncols,) payload through the same exchange as a vector's
+    entries."""
+    from ..dense import DistDenseMatrix
+
+    p2 = validate_partition(new_partition, A.m)
+    if nshards_of(p2) != A.backend.nshards:
+        raise ValueError("new partition must have the same shard count as the mesh")
+    if partition_hash(p2) == A.row_partition_hash:
+        return A
+    plan = get_repartition_plan(A.backend, A.row_partition, p2)
+    return DistDenseMatrix(plan.apply(A.data), p2, A.ncols, A.backend)

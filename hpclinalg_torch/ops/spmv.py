@@ -25,6 +25,13 @@ plan is built, with the JAX package's rules and thresholds:
   * fallback: gather + segment sum (``scatter_add_``), for degenerate
     patterns with no stored entries.
 
+SpMM (``A @ B`` with a dense B, ``ops/mixed.py``) takes the same plan for
+an x on B's row partition (``get_spmm_plan``); its exchange moves B's rows
+whole, and its engines are the plain PyTorch ones widened to k columns.
+The ELL one (``_ell_spmm_exec``) reads B itself at one shard, through
+column tables composed with the compressed-column map and checked
+against B's rows (``_ell_cols_raw``).
+
 Every index table is checked on the host when the plan is built
 (``check_index``): an out-of-range index on the device would be a
 device-side fault, and the kernels do not clip. The per-matrix value tables
@@ -252,6 +259,7 @@ class SpMVPlan:
             check_index("ell_tail_gidx", tgidx, G)
             check_index("ell_tail_scat", tscat, Tpad, sentinel=Tpad)
             self.ell_tail_rows = be.tensor(trows)
+            self.ell_tail_gidx_np = tgidx
             self.ell_tail_gidx = be.tensor(tgidx)
             self.ell_tail_scat = be.tensor(tscat)
         if st.nnz >= MIN_NNZ and W * nrows_tot <= MAX_ELL_BLOWUP * st.nnz:
@@ -272,18 +280,28 @@ class SpMVPlan:
         return "ell"
 
 
-def get_spmv_plan(A, x) -> SpMVPlan:
-    """Memoized plan (ref: get_vector_plan, sparse.jl:1992)."""
-    key = (A.hash, x.partition_hash, A.backend.key)
+def _get_plan(A, partition: np.ndarray, phash: str) -> SpMVPlan:
+    key = (A.hash, phash, A.backend.key)
 
     def build():
         exchange = gather_exchange_plan(
-            A.backend, x.partition, A.structure.col_indices,
+            A.backend, partition, A.structure.col_indices,
             out_len=A.structure.Gpad,
         )
-        return SpMVPlan(A, x.partition_hash, exchange)
+        return SpMVPlan(A, phash, exchange)
 
     return cached_plan("vector_plan", key, build)
+
+
+def get_spmv_plan(A, x) -> SpMVPlan:
+    """Memoized plan (ref: get_vector_plan, sparse.jl:1992)."""
+    return _get_plan(A, x.partition, x.partition_hash)
+
+
+def get_spmm_plan(A, B) -> SpMVPlan:
+    """The plan of ``A @ B`` with a dense B: the SpMV plan of an x on B's
+    row partition, whose exchange moves B's rows whole."""
+    return _get_plan(A, B.row_partition, B.row_partition_hash)
 
 
 def _scatter_table(scat: torch.Tensor, nzval: torch.Tensor,
@@ -390,3 +408,84 @@ def matvec(A, x):
     else:
         y = _segment_spmv(A, pad_trunc(g, pad_to))
     return DistVector._wrap(y, st.row_partition, A.backend, plan.row_phash)
+
+
+# -- SpMM: the same engines with (k,) row payloads ------------------------------
+
+def _pad_rows(g: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the slot axis (axis 1) of a (S, L, k) payload to ``n``."""
+    if g.shape[1] >= n:
+        return g
+    out = g.new_zeros((g.shape[0], n) + tuple(g.shape[2:]))
+    out[:, : g.shape[1]] = g
+    return out
+
+
+def _ell_cols_raw(A, plan: SpMVPlan) -> torch.Tensor:
+    """(1, Lrow*W) ELL column table composed with the compressed-column
+    map of a single shard, so the product reads B's own rows and skips the
+    compression gather. Dead slots point at column ``col_indices[0]``;
+    their values are zero. Checked against A's column count (= B.m) and
+    cached on the plan."""
+    hit = getattr(plan, "_ell_cols_raw", None)
+    if hit is None:
+        ci = A.structure.col_indices[0]
+        raw = ci[plan.ell_cols_np[0].astype(np.int64)]
+        check_index("ell_cols_raw", raw, A.ncols)
+        hit = plan._ell_cols_raw = A.backend.tensor(
+            raw.astype(np.int32)[None])
+    return hit
+
+
+def _ell_tail_gidx_raw(A, plan: SpMVPlan) -> torch.Tensor:
+    """The COO tail's gather indices composed like ``_ell_cols_raw``."""
+    hit = getattr(plan, "_ell_tail_gidx_raw", None)
+    if hit is None:
+        ci = A.structure.col_indices[0]
+        raw = ci[plan.ell_tail_gidx_np[0].astype(np.int64)]
+        check_index("ell_tail_gidx_raw", raw, A.ncols)
+        hit = plan._ell_tail_gidx_raw = A.backend.tensor(
+            raw.astype(np.int32)[None])
+    return hit
+
+
+def _ell_spmm_exec(vals, cols, g, tail=None) -> torch.Tensor:
+    """Row-payload ELL product, shard by shard:
+    C[s, r, :] = Σ_w vals[s, r, w] · g[s, cols[s, r*W + w], :] plus the COO
+    tail, whose row ``Lrow`` is the drop slot. Its temporary is the
+    (Lrow, W, k) block of gathered rows of one shard."""
+    S, Lrow, W = vals.shape
+    k = g.shape[2]
+    dt = torch.promote_types(vals.dtype, g.dtype)
+    C = torch.empty((S, Lrow, k), dtype=dt, device=g.device)
+    for s in range(S):
+        gs = g[s].to(dt)
+        gr = gs.index_select(0, cols[s]).reshape(Lrow, W, k)
+        gr.mul_(vals[s].to(dt)[:, :, None])
+        torch.sum(gr, dim=1, out=C[s])
+        del gr  # freed before the next shard allocates its own
+        if tail is not None:
+            tv, tr, tg = tail
+            ys = torch.cat([C[s], C.new_zeros((1, k))])
+            ys.index_add_(0, tr[s], tv[s].to(dt)[:, None]
+                          * gs.index_select(0, tg[s]))
+            C[s] = ys[:Lrow]
+    return C
+
+
+def _ell_spmm_apply(A, plan: SpMVPlan, data: torch.Tensor) -> torch.Tensor:
+    """The ELL engine of ``A @ B`` on B's stacked rows ``data``. One shard
+    reads B directly through the composed tables; more shards gather B's
+    rows through the plan's exchange first."""
+    vals, tvals = _ell_values(A, plan)
+    ex = plan.exchange
+    if A.backend.nshards == 1:
+        g = data
+        cols = _ell_cols_raw(A, plan)
+        tgidx = _ell_tail_gidx_raw(A, plan) if plan.ell_Tpad else None
+    else:
+        g = _pad_rows(data, ex.out_pad) if ex.is_identity else ex.apply(data)
+        cols = plan.ell_cols
+        tgidx = plan.ell_tail_gidx if plan.ell_Tpad else None
+    tail = (tvals, plan.ell_tail_rows, tgidx) if plan.ell_Tpad else None
+    return _ell_spmm_exec(vals, cols, g, tail)

@@ -339,11 +339,23 @@ class Factorization:
         return x
 
     def solve_matrix(self, B, transpose: bool = False,
-                     refine: int | None = None) -> np.ndarray:
-        """Blocked multi-RHS solve of a host (n, k) array: all columns go
-        through one gemm-based sweep, with matrix-level refinement."""
-        return self._solve_any(self._solve_multi_host, np.asarray(B),
-                               transpose, refine)
+                     refine: int | None = None):
+        """Blocked multi-RHS solve: ``B`` is a DistDenseMatrix or a host
+        (n, k) array whose columns are right-hand sides, gathered to the
+        host once; all columns go through one gemm-based sweep, with
+        matrix-level refinement (ref: MUMPS multi-RHS solve path,
+        mumps_factorization.jl:291-353). Returns the same flavour, a
+        DistDenseMatrix on A's row partition."""
+        from ..dense import DistDenseMatrix
+
+        is_dist = isinstance(B, DistDenseMatrix)
+        Bh = B.to_numpy() if is_dist else np.asarray(B)
+        X = self._solve_any(self._solve_multi_host, Bh, transpose, refine)
+        if is_dist:
+            return DistDenseMatrix.from_global(
+                X, self.backend, row_partition=self.A.row_partition,
+                dtype=X.dtype)
+        return X
 
     def finalize(self):
         """Release numeric data (ref: finalize!, mumps_factorization.jl:421)."""
@@ -423,17 +435,28 @@ class BackslashCache:
             # reference makes this immune to id recycling
             F.refactorize(A)
         F._vals_ref = A.nzval
+        from ..dense import DistDenseMatrix
         from ..vector import DistVector
 
-        if not isinstance(b, DistVector) and np.ndim(b) == 2:
+        if isinstance(b, DistDenseMatrix) or (
+                not isinstance(b, DistVector) and np.ndim(b) == 2):
+            # matrix right-hand side: the blocked multi-RHS sweep
             return F.solve_matrix(b, transpose=transpose)
         return F.solve(b, transpose=transpose)
 
 
 def solve(A, b, symmetric: bool | None = None, transpose: bool = False):
     """``A \\ b`` (ref: Base.:\\, HPCLinearAlgebra.jl:674). Wrapping A in
-    Symmetric asserts symmetry; ``transpose=True`` solves Aᵀ x = b."""
+    Symmetric asserts symmetry; ``transpose=True`` solves Aᵀ x = b, and so
+    does a LazyTranspose ``A.T`` (ref: transpose solve,
+    test_factorization.jl). ``b`` may be a DistVector, a DistDenseMatrix or
+    a host array of one or two dimensions."""
+    from ..lazy import LazyTranspose
+
     if isinstance(A, Symmetric):
         return BackslashCache.solve(A.A, b, symmetric=True,
                                     transpose=transpose)
+    if isinstance(A, LazyTranspose):
+        return BackslashCache.solve(A.parent, b, symmetric=symmetric,
+                                    transpose=not transpose)
     return BackslashCache.solve(A, b, symmetric=symmetric, transpose=transpose)

@@ -341,12 +341,15 @@ class DistSparseMatrix:
 
     # -- operators --------------------------------------------------------------
     def __matmul__(self, o):
+        from .dense import DistDenseMatrix
         from .lazy import LazyTranspose
-        from .ops import spgemm, spmv
+        from .ops import mixed, spgemm, spmv
         from .vector import DistVector
 
         if isinstance(o, DistVector):
             return spmv.matvec(self, o)
+        if isinstance(o, DistDenseMatrix):
+            return mixed.sparse_times_dense(self, o)
         if isinstance(o, DistSparseMatrix):
             return spgemm.spgemm(self, o)
         if isinstance(o, LazyTranspose) and isinstance(o.parent, DistSparseMatrix):

@@ -12,17 +12,23 @@ from __future__ import annotations
 import numpy as np
 
 from ..backend import Backend
+from ..dense import DistDenseMatrix
 from ..sparse import DistSparseMatrix, SparseStructure
 from ..vector import DistVector
 
 
 def _reference_state(ref) -> dict:
     """The keyword arguments of ``from_reference`` for a container of the
-    JAX package — any DistVector or DistSparseMatrix, including one produced
-    by its transpose, addition or SpGEMM plans — read by duck typing: its
-    device arrays go through ``np.asarray`` and its host structure arrays
-    are taken as they are, so the structure and its hash carry over."""
+    JAX package — any DistVector, DistDenseMatrix or DistSparseMatrix,
+    including one produced by its transpose, addition, SpGEMM or SpMM
+    plans — read by duck typing: its device arrays go through
+    ``np.asarray`` and its host structure arrays are taken as they are, so
+    the structure and its hash carry over."""
     st = getattr(ref, "structure", None)
+    if st is None and hasattr(ref, "row_partition"):
+        return dict(data=np.asarray(ref.data),
+                    row_partition=np.asarray(ref.row_partition),
+                    col_partition=np.asarray(ref.col_partition))
     if st is None:
         return dict(data=np.asarray(ref.data), partition=np.asarray(ref.partition))
     return dict(nzval=np.asarray(ref.nzval), indptr=st.indptr,
@@ -36,11 +42,20 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
                    row_partition=None, col_partition=None, ncols=None):
     """The port's container for a JAX package container ``ref`` (see
     ``_reference_state``), or a DistVector from ``data`` (S, L) and
-    ``partition``, or a DistSparseMatrix from ``nzval`` (S, NNZpad) and the
-    SparseStructure arrays (per-shard ``indptr``, ``colval``,
-    ``col_indices``, the two partitions and ``ncols``)."""
+    ``partition``, or a DistDenseMatrix from ``data`` (S, Lrow, ncols),
+    ``row_partition`` and optionally ``col_partition``, or a
+    DistSparseMatrix from ``nzval`` (S, NNZpad) and the SparseStructure
+    arrays (per-shard ``indptr``, ``colval``, ``col_indices``, the two
+    partitions and ``ncols``)."""
     if ref is not None:
         return from_reference(backend, **_reference_state(ref))
+    if data is not None and np.ndim(data) == 3:
+        if row_partition is None:
+            raise ValueError("a dense matrix needs its row partition")
+        data = np.asarray(data)
+        return DistDenseMatrix(backend.tensor(data), np.asarray(row_partition),
+                               data.shape[2], backend,
+                               col_partition=col_partition)
     if data is not None:
         if partition is None:
             raise ValueError("a vector needs its partition")

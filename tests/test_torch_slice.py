@@ -11,7 +11,11 @@ step uses only the public API. Then ``ldlt(A).solve(b)`` of both agree to
 The second path is the sparse ridge regression of ``chip_smoke.py`` cut to
 m = 20,000 observations and n = 512 unknowns, from the same generator:
 At = A.T.materialize(), N = (At @ A).add_identity(lambda), rhs = At @ b, CG
-on N, ldlt(N).solve(rhs) and A @ x, through both packages and scipy."""
+on N, ldlt(N).solve(rhs) and A @ x, through both packages and scipy.
+
+The third is the multi-response ridge of ``chip_smoke.py`` phase 8 at the
+same cut size with eight responses: R = At @ Y, Xh = solve(N, R), N @ Xh,
+Xh.T @ Xh and A @ Xh - Y."""
 
 import jax
 import numpy as np
@@ -20,6 +24,7 @@ import scipy.sparse as sp
 import torch
 
 import hpclinalg as hl
+import hpclinalg.ops.spmv as jspmv
 import hpclinalg_torch as ht
 import hpclinalg_torch.ops.cuda_ell_resident as tk3
 import hpclinalg_torch.ops.spmv as tspmv
@@ -163,6 +168,60 @@ def test_ridge_path_matches_reference(S, monkeypatch):
     assert ht.cache_sizes() == sizes and N2.structure is N.structure
     close(N2.to_scipy().toarray(), 2.25 * (A.T @ A).toarray(), 1e-12)
     ht.clear_plan_cache("vector_plan")
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_multi_response_ridge_matches_reference(S, monkeypatch):
+    """The dense slice as a whole: the multi-response ridge of
+    ``chip_smoke.py`` phase 8, cut to m = 20,000 and n = 512 with k = 8
+    responses. R = At @ Y (SpMM on the ELL engine, densify off as in the
+    ridge test above), Xh = solve(N, R) from the host multi-RHS sweep,
+    N @ Xh, Xh.T @ Xh and A @ Xh - Y through both packages and scipy."""
+    m, n, k = 20_000, 512, 8
+    A, _ = banded_design(m, n, seed=8)
+    Y = np.random.default_rng(9).standard_normal((m, k))
+    monkeypatch.setattr(tspmv, "DENSE_MAX_ELEMS", 0)
+    monkeypatch.setattr(jspmv, "DENSE_MAX_ELEMS", 0)
+    ht.clear_plan_cache()
+    hl.clear_plan_cache()
+
+    bet = ht.backend_auto(S, device="cpu")
+    Ad = ht.DistSparseMatrix.from_scipy(A, bet)
+    T = Ad.T.materialize()
+    N = (T @ Ad).add_identity(RIDGE_LAMBDA)
+    Yd = ht.DistDenseMatrix.from_global(Y, bet)
+    R = T @ Yd
+    assert tspmv.get_spmm_plan(T, Yd).ell
+    Xh = ht.solve(N, R)
+    assert isinstance(Xh, ht.DistDenseMatrix)
+    np.testing.assert_array_equal(Xh.row_partition, N.row_partition)
+    res = (N @ Xh - R).norm() / R.norm()
+    G = Xh.T @ Xh
+    E = Ad @ Xh - Yd
+
+    bej = hl.backend_auto(nshards=S, dtype=np.float64)
+    Aj = hl.DistSparseMatrix.from_scipy(A, bej)
+    Tj = Aj.transpose_materialized()
+    Nj = (Tj @ Aj).add_identity(RIDGE_LAMBDA)
+    Yj = hl.DistDenseMatrix.from_global(Y, bej)
+    Rj = Tj @ Yj
+    Xj = hl.solve(Nj, Rj)
+
+    def close(got, want, rtol):
+        np.testing.assert_allclose(got, want, rtol=rtol,
+                                   atol=rtol * abs(want).max())
+
+    assert R.hash == Rj.hash and Xh.hash == Xj.hash
+    close(R.data.numpy(), np.asarray(Rj.data), 1e-12)
+    close(R.to_numpy(), A.T @ Y, 1e-12)
+    xh = Xh.to_numpy()
+    close(xh, Xj.to_numpy(), 1e-10)
+    assert float(res) <= 1e-10
+    close(G.to_numpy(), xh.T @ xh, 1e-12)
+    close(G.to_numpy(), (Xj.T @ Xj).to_numpy(), 1e-10)
+    close(E.to_numpy(), A @ xh - Y, 1e-12)
+    hl.clear_plan_cache()
+    ht.clear_plan_cache()
 
 
 def _cg(A, b, steps):
