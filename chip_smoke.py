@@ -10,33 +10,46 @@ hpclinalg_torch/csrc, then:
      wide-span pattern that takes the kernel's second variant;
   2. holds K2 (ELL SpMV + COO tail) against its twin on the random
      10^6 x 8 nnz/row matrix in f32 and f64 and on a power-law matrix with a
-     nonempty tail, and its gather-only mode bit for bit at 8*10^6 slots;
+     nonempty tail (also a tenth of it on S = 4 shards), and its gather-only
+     mode bit for bit at 8*10^6 slots, at an odd length, from an
+     unaligned source table and on two shards of an odd width;
   3. drives the main path through the public API in f64 — A @ x, 200 CG
      steps, A @ x on the random matrix, ldlt/solve/lu on the host engine —
      with the kernels' launch counters reset just before and read just after;
-  4. times each kernel against its twin (median of 20, CUDA events, L2
-     flushed before each launch), the CG step (wall and host enqueue time,
-     and the card's busy share from a torch.profiler trace) and the build;
+  4. times each kernel against its twin and its library call (median of 20,
+     CUDA events, L2 flushed before each launch, in turns) beside its bound
+     (bytes over 3.35 TB/s or operations over the peak rate); the library
+     call is cuSPARSE's CSR SpMV (torch.sparse_csr_tensor @ x) for K1-K3
+     and index_select for the gather mode, built from the same inputs and
+     called by this script only; K2's kernels on the power law by the
+     profiler, K2's group width swept 1..32, the gather mode against the
+     same bytes in order; the CG step (wall and host enqueue time, and the
+     card's busy share from a torch.profiler trace) and the build;
   5. holds K3 (resident-x ELL SpMV) against its plain version and against K2
      on the same tables: the ridge normal matrix N = A^T A + lambda I (f32
      and f64, S = 1 and 4), the tall design A (f64), and a gathered x at
-     the shared-memory cap; a gathered x over the cap must take K2;
+     the shared-memory cap (with 16-byte and with one-entry loads); a
+     gathered x over the cap must take K2;
   6. drives the sparse ridge-regression path through the public API in f64
      at S = 1 and 4 — A is 10^6 x 16384 with 4 entries a row in a band:
      At = A.T.materialize(), N = (At @ A).add_identity(lambda), rhs = At @ b
      (K2), 50 CG steps on N (K3), ldlt(N).solve(rhs) on the host, A @ x
      (K3) — with the launch counters reset just before and read just after,
      then the laplace2d(100)^2 SpGEMM (DIA engine) in f64 and f32; and
-     times K3, K2 and the plain version on each phase-5 case, the SpGEMM
-     with and without its plan build, the transpose, add_identity, the CG
-     step on N and the host factor + solve;
+     times K3, K2, the plain version and the library call on each phase-5
+     case (K2's group width and K3's tile height swept on N and A, K3 on N
+     once more with L2 warm), the SpGEMM with and without its plan build,
+     the transpose, add_identity, the CG step on N and the host factor +
+     solve;
   7. runs the probe tools (python -m hpclinalg_torch.tools.*) at their own
      sizes in f32, with the launch counters reset just before and read just
      after: proto_dia (K1 on laplace2d(2000) against scipy), dia_variants
      at k = 1000 and 2000 (K1 through the plan and raw, K4 dia_flat_spmv v4
      against its plain version and scipy, v1 against its plain version, K4
      table_stream skern, v3 and v5 against their plain versions) and
-     probe_kpayload at k = 64, F = 8, 4096 tiles (K5 bit-exact);
+     probe_kpayload at k = 64, F = 8, 4096 tiles (K5 bit-exact), and prints
+     each probe beside its bound and its library call (cuSPARSE's CSR SpMV
+     on the same Laplacian, K5's one indexing call; none for table_stream);
   8. drives the dense path through the public API in f64 at S = 1 and 4:
      the random 10^6 x 8 matrix times a 10^6 x 64 DistDenseMatrix against
      scipy (and in f32), laplace2d(1000) times a 10^6 x 8 block, the
@@ -61,7 +74,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from hpclinalg_torch.tools.timing import Timer
+from hpclinalg_torch.tools.ell_ab import cg
+from hpclinalg_torch.tools.matrices import (banded_design, laplace2d,
+                                            power_law, random_8,
+                                            random_cols)
+from hpclinalg_torch.tools.timing import Timer, bound_ms
 
 SEED = 0
 N = 1_000_000          # rows of the SpMV matrices (laplace2d(K): N = K^2)
@@ -80,71 +97,10 @@ RIDGE_CG_STEPS = 50
 RIDGE_CG_RTOL = 1e-11
 
 
-def banded_design(m, n, seed, per_row=4, half=48):
-    """The ridge design matrix and right-hand side: row i holds per_row
-    distinct columns drawn from [c_i - half, c_i + half] ∩ [0, n), with
-    c_i = floor(i n / m), and standard-normal values; b is m standard
-    normals. A local design, as in B-spline smoothing or 1-D deconvolution."""
-    rng = np.random.default_rng(seed)
-    c = (np.arange(m, dtype=np.int64) * n) // m
-    lo = np.maximum(c - half, 0)
-    width = np.minimum(c + half, n - 1) - lo + 1
-    chosen = np.zeros((m, 0), np.int64)
-    for j in range(per_row):
-        # the r-th of the width - j columns not chosen yet
-        r = rng.integers(0, width - j)
-        for k in range(j):
-            r += r >= chosen[:, k]
-        chosen = np.sort(np.concatenate([chosen, r[:, None]], 1), axis=1)
-    indptr = np.arange(0, per_row * m + 1, per_row, dtype=np.int64)
-    A = sp.csr_matrix((rng.standard_normal(per_row * m),
-                       (lo[:, None] + chosen).reshape(-1), indptr),
-                      shape=(m, n))
-    return A, rng.standard_normal(m)
-
-
-def random_cols(m, n, per_row, seed):
-    """m x n with per_row uniformly random columns a row (duplicates summed)."""
-    rng = np.random.default_rng(seed)
-    A = sp.csr_matrix((rng.standard_normal(m * per_row),
-                       (np.repeat(np.arange(m), per_row),
-                        rng.integers(0, n, m * per_row))), shape=(m, n))
-    A.sum_duplicates()
-    return A
-
-
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
     print(f"  ok: {what}", flush=True)
-
-
-def laplace2d(k):
-    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
-    I = sp.eye(k)
-    return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
-
-
-def random_8(n, seed):
-    """The random n x n, 8 entries per row matrix of bench.py."""
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(n, dtype=np.int64), 8)
-    cols = rng.integers(0, n, size=n * 8)
-    A = sp.csr_matrix((rng.standard_normal(n * 8), (rows, cols)), shape=(n, n))
-    A.sum_duplicates()
-    return A
-
-
-def power_law(n, seed):
-    """Zipf(2) row lengths capped at 10^4 (mean near 6): the long rows
-    overflow the ELL width into the COO tail."""
-    rng = np.random.default_rng(seed)
-    lens = np.minimum(rng.zipf(2.0, n), 10_000)
-    indptr = np.concatenate([[0], np.cumsum(lens)])
-    A = sp.csr_matrix((rng.standard_normal(indptr[-1]),
-                       rng.integers(0, n, indptr[-1]), indptr), shape=(n, n))
-    A.sum_duplicates()
-    return A
 
 
 def close(a, b, rtol):
@@ -193,21 +149,6 @@ def device_kernels(fn, top=4):
     return sorted(tot.items(), key=lambda kv: -kv[1])[:top]
 
 
-def cg(A, b, steps):
-    """``steps`` CG iterations from x = 0 with the port's public API."""
-    x = type(b).zeros(b.n, b.backend)
-    r, p = b, b
-    for _ in range(steps):
-        Ap = A @ p
-        rr = r.dot(r)
-        alpha = rr / p.dot(Ap)
-        x = x + alpha * p
-        r2 = r - alpha * Ap
-        p = r2 + (r2.dot(r2) / rr) * p
-        r = r2
-    return x, r
-
-
 def engine_inputs(A, x):
     """The SpMV plan of A @ x and the gathered x its engine reads."""
     from hpclinalg_torch.ops import spmv as spmv_mod
@@ -219,6 +160,114 @@ def engine_inputs(A, x):
     return plan, g, pad_to
 
 
+def ell_call(plan, Md, g, pad_to):
+    """K2's and K3's arguments as A @ x passes them: (args, K2 keywords,
+    K3 keywords)."""
+    from hpclinalg_torch.ops import spmv as spmv_mod
+
+    args, kw, windows = spmv_mod.ell_kernel_args(Md, plan, g, pad_to)
+    return args, kw, dict(kw, windows=windows)
+
+
+def misaligned(t):
+    """A copy of ``t`` whose data starts one item past the allocator's
+    16-byte boundary, so the ELL kernels take their one-entry loads."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ell_bytes(plan, Md, dt):
+    """Bytes an ELL SpMV must move: the stored entries (value and column
+    index), the row-length table, the tail's entries (value, row, column),
+    the gathered x once and y once. Padding is not counted: the kernels
+    never read it."""
+    isz = dt.itemsize
+    S, Lrow = plan.ell_rowlen_np.shape
+    n_ell = int(plan.ell_rowlen_np.sum())
+    n_tail = Md.nnz() - n_ell
+    return (n_ell * (isz + 4) + S * Lrow * 4 + n_tail * (isz + 8)
+            + S * plan.exchange.out_pad * isz + S * Lrow * isz)
+
+
+def dia_bytes(plan, dval, dt):
+    """Bytes a DIA SpMV must move: the (S, O, Lrow) diagonal table, the
+    gathered x once and y once."""
+    S, O, Lrow = dval.shape
+    return (S * O * Lrow + S * plan.exchange.out_pad + S * Lrow) * dt.itemsize
+
+
+def csr_call(M, dt, dev, xh):
+    """The library yardstick of an SpMV: cuSPARSE's CSR SpMV, one PyTorch
+    call (``torch.sparse_csr_tensor(...) @ x``) on the same matrix and x,
+    built outside the timed call. Only this script calls it."""
+    M = M.tocsr()
+    A = torch.sparse_csr_tensor(torch.from_numpy(M.indptr.astype(np.int32)),
+                                torch.from_numpy(M.indices.astype(np.int32)),
+                                torch.from_numpy(M.data), size=M.shape,
+                                dtype=dt, device=dev)
+    x = torch.from_numpy(np.asarray(xh)).to(dev, dt)
+    return lambda: A @ x
+
+
+def turns(timer, fns, cold=True):
+    """Median times of ``fns`` taken in turns, forward then backward (k, p,
+    l, l, p, k for a kernel, its plain version and the library call); the
+    better of the two rounds of each. None stays None. ``cold``: as for
+    ``Timer.ms``."""
+    live = [f for f in fns if f is not None]
+    a = [timer.ms(f, cold=cold) for f in live]
+    b = [timer.ms(f, cold=cold) for f in reversed(live)][::-1]
+    it = iter(min(x, y) for x, y in zip(a, b))
+    return [None if f is None else next(it) for f in fns]
+
+
+def case_line(label, ms, plain, lib, nbytes, flops, dt, card):
+    """Print a timed case with its bound; returns (bound ms, bound_by)."""
+    bms, by = bound_ms(nbytes, flops, dt)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}; bound {bms:.4f} ms "
+          f"({by}: {nbytes / 1e6:.1f} MB), {100 * bms / ms:.0f} % of it  "
+          f"[{card}]", flush=True)
+    return bms, by
+
+
+def lanes_sweep(timer, label, args, kw, card):
+    """K2's time at each group width 1..32 on one case, in turns, the
+    plan's own marked with *: the evidence for ops/cuda_ell.py:lanes_for."""
+    from hpclinalg_torch.ops import cuda_ell
+
+    widths = (1, 2, 4, 8, 16, 32)
+    got = turns(timer, [lambda k=dict(kw, lanes=w): cuda_ell.ell_spmv(*args, **k)
+                        for w in widths])
+    print(f"  {label} by group width: " + ", ".join(
+        f"{w}{'*' if w == kw['lanes'] else ''} {ms:.4f}"
+        for w, ms in zip(widths, got)) + f" ms  [{card}]", flush=True)
+
+
+def tile_sweep(timer, label, plan, args, kw3, card):
+    """K3's time at tiles of 1..16 row passes on one case, in turns, the
+    plan's own marked with *: the evidence for
+    ops/cuda_ell_resident.py:tile_rows."""
+    from hpclinalg_torch.ops import cuda_ell, cuda_ell_resident as k3
+
+    per = cuda_ell.rows_per_pass(kw3["lanes"])
+    dt = args[0].dtype
+    fns, labels = [], []
+    for passes in (1, 2, 4, 8, 16):
+        win = k3.make_windows(plan.ell_cols_np, plan.ell_rowlen_np,
+                              kw3["lanes"], dt, args[2].device, per * passes)
+        fns.append(lambda k=dict(kw3, windows=win):
+                   k3.ell_resident_spmv(*args, **k))
+        mark = "*" if per * passes == kw3["windows"].tile_rows else ""
+        labels.append(f"{passes}{mark}")
+    got = turns(timer, fns)
+    print(f"  {label} by row passes a tile ({per} rows a pass): " + ", ".join(
+        f"{lab} {ms:.4f}" for lab, ms in zip(labels, got))
+        + f" ms  [{card}]", flush=True)
+
+
 def timed_s(fn):
     """Wall seconds of one call of ``fn``, the card's queue drained."""
     torch.cuda.synchronize()
@@ -228,7 +277,7 @@ def timed_s(fn):
     return out, time.perf_counter() - t0
 
 
-def phase5_k3(ht, dev, A, N_sc, rng, errs, bench):
+def phase5_k3(ht, dev, A, N_sc, rng, errs, bench, sweep):
     """K3 against its plain version and against K2 on the same tables, at
     the shapes of the ridge path and at the shared-memory cap."""
     from hpclinalg_torch.ops import cuda_ell, cuda_ell_resident as k3
@@ -252,17 +301,20 @@ def phase5_k3(ht, dev, A, N_sc, rng, errs, bench):
         x = ht.DistVector.from_global(rng.standard_normal(M.shape[1]), be)
         plan, g, pad_to = engine_inputs(Md, x)
         G = plan.exchange.out_pad
+        lanes, win = plan.ell_layout(dt)
+        staged = "windows" if win is not None and \
+            2 * win.width * dt.itemsize <= cap else "whole x"
         check(plan.engine(dt) == "resident",
               f"{name} S={S} {dt} takes the resident engine (nnz "
-              f"{Md.nnz()}, W={plan.ell_W}, Tpad={plan.ell_Tpad}, gathered "
-              f"x {G} slots = {G * dt.itemsize} bytes)")
-        vals, tvals = spmv_mod._ell_values(Md, plan)
-        tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
-            if plan.ell_Tpad else None
-        args = (vals, plan.ell_cols, g, tail, pad_to)
-        y3 = k3.ell_resident_spmv(*args)
+              f"{Md.nnz()}, W={plan.ell_W}, Tpad={plan.ell_Tpad}, lanes "
+              f"{lanes}, gathered x {G} slots = {G * dt.itemsize} "
+              f"bytes; K3 stages {staged}"
+              + (f", {win.tile_rows}-row tiles, widest window {win.width} "
+                 "slots)" if win is not None else ")"))
+        args, kw2, kw3 = ell_call(plan, Md, g, pad_to)
+        y3 = k3.ell_resident_spmv(*args, **kw3)
         yp = k3.ell_resident_spmv_plain(*args)
-        y2 = cuda_ell.ell_spmv(*args)
+        y2 = cuda_ell.ell_spmv(*args, **kw2)
         torch.cuda.synchronize()
         ok, err = close(y3, yp, K3_RTOL[dt])
         ok2, err2 = close(y3, y2, K3_RTOL[dt])
@@ -270,10 +322,26 @@ def phase5_k3(ht, dev, A, N_sc, rng, errs, bench):
               f"against the plain version, {err2:.3e} against K2 (rtol "
               f"{K3_RTOL[dt]:g} of max|y|)")
         errs["resident"] = max(errs["resident"], err)
-        bench[(name, S, dt)] = tuple(
-            (lambda f=f, a=args: f(*a)) for f in (
-                k3.ell_resident_spmv, cuda_ell.ell_spmv,
-                k3.ell_resident_spmv_plain))
+        if name == "at_cap":
+            # both variants of the kernel (16-byte and one-entry loads) at
+            # the same shared memory, above the 48 KB that needs an opt-in
+            a1 = (misaligned(args[0]),) + args[1:]
+            y1 = k3.ell_resident_spmv(*a1, **kw3)
+            torch.cuda.synchronize()
+            ok, err1 = close(y1, yp, K3_RTOL[dt])
+            check(ok, f"K3 {name} with one-entry loads (vals {dt.itemsize} "
+                  f"bytes off 16) after 16-byte loads, both staging "
+                  f"{-(-G * dt.itemsize // 16) * 16} bytes: max_abs_err "
+                  f"{err1:.3e} against the plain version")
+            errs["resident"] = max(errs["resident"], err1)
+        bench[(name, S, dt)] = (
+            lambda a=args, k=kw3: k3.ell_resident_spmv(*a, **k),
+            lambda a=args, k=kw2: cuda_ell.ell_spmv(*a, **k),
+            lambda a=args: k3.ell_resident_spmv_plain(*a),
+            csr_call(M, dt, dev, x.to_numpy()),
+            ell_bytes(plan, Md, dt), 2 * Md.nnz())
+        if S == 1 and dt == torch.float64 and name != "at_cap":
+            sweep[name] = (plan, args, kw2, kw3)
     # one slot group past the cap: the plan must take K2, and A @ x does
     M = random_cols(300_000, g_cap, 4, SEED + 7)
     be = ht.backend_auto(1, dtype=np.float64, device=dev)
@@ -455,7 +523,42 @@ def phase7_probes():
     check(kp["exact"], f"probe_kpayload k={SPMM_K} F=8: K5 is bit-exact")
     check(all(v > 0 for v in launches.values()),
           "the probes launched K1, K4 (both kernels) and K5")
-    return launches, dv, kp
+    return launches, proto, dv, kp
+
+
+def probe_bounds(dv, proto, kp, timer, card, csr_ms):
+    """Each probe beside its bound and its library call: cuSPARSE's CSR
+    SpMV on the same Laplacian (``csr_ms`` by k) for the variants that
+    compute a DIA SpMV; none for table_stream (y = c + scale * the sum of
+    table rows, which no single PyTorch call computes); for K5 the one
+    advanced-indexing call ``src[t, sel, j, idx]`` on widened tables, timed
+    here. Returns K5's library time."""
+    from hpclinalg_torch.tools.dia_variants import TR
+
+    def need(name, rec):
+        n, O = rec["n"], rec["O"]
+        if name == "skern":          # one table row read, y written
+            return 2 * -(-n // TR) * TR * 4
+        if name[:2] in ("v3", "v5"):  # O table rows read, y written
+            return (O + 1) * n * 4
+        return (O + 2) * n * 4       # an SpMV: the table, x and y once
+    recs = [(2000, "proto_dia (K1 through A @ x)", "k1", proto)] + [
+        (k, name, name, rec) for k, rows in dv.items()
+        for name, rec in rows.items() if "plain_ms" in rec]
+    for k, label, name, rec in recs:
+        lib = None if name == "skern" or name[:2] in ("v3", "v5") \
+            else csr_ms[k]
+        case_line(f"probe k={k} {label} float32", rec["ms"], rec["plain_ms"],
+                  lib, need(name, rec), 0.0, torch.float32, card)
+    src, idx, sel = kp.pop("inputs")
+    dev = src.device
+    t = torch.arange(src.shape[0], device=dev)[:, None, None]
+    j = torch.arange(src.shape[2], device=dev)[None, :, None]
+    sl, il = sel.long(), idx.long()
+    lib = min(timer.ms(lambda: src[t, sl, j, il]) for _ in range(2))
+    case_line(f"K5 kpayload k={kp['k']} F={kp['F']} float32", kp["ms"],
+              kp["plain_ms"], lib, kp["bound_bytes"], 0.0, torch.float32, card)
+    return lib
 
 
 def peak_mb(fn):
@@ -649,8 +752,11 @@ def main():
                             torch.from_numpy(L1000 @ xh.astype(npdt)),
                             K1_RTOL[dt])
             check(ok, f"A @ x S={S} {dt} against scipy, max_abs_err={err:.3e}")
-            bench[("dia", S, dt)] = (lambda a=args: cuda_dia.dia_spmv(*a),
-                                     lambda a=args: cuda_dia.dia_spmv_plain(*a))
+            bench[("dia", S, dt)] = (
+                lambda a=args: cuda_dia.dia_spmv(*a),
+                lambda a=args: cuda_dia.dia_spmv_plain(*a),
+                csr_call(L1000, dt, dev, xh), dia_bytes(plan, dval, dt),
+                2 * A.nnz())
     w = 3 * n // 10
     offs = (-w, 0, w)
     W3 = sp.diags([np.full(n - w, 0.5), np.full(n, 2.0),
@@ -671,13 +777,17 @@ def main():
         check(ok and variant == 1, f"K1 wide span {dt} variant={variant} "
               f"max_abs_err={err:.3e}")
         errs["dia"] = max(errs["dia"], err)
-        bench[("dia_wide", 1, dt)] = (lambda a=args: cuda_dia.dia_spmv(*a),
-                                      lambda a=args: cuda_dia.dia_spmv_plain(*a))
+        bench[("dia_wide", 1, dt)] = (
+            lambda a=args: cuda_dia.dia_spmv(*a),
+            lambda a=args: cuda_dia.dia_spmv_plain(*a),
+            csr_call(W3, dt, dev, xh), dia_bytes(plan, args[0], dt),
+            2 * A.nnz())
 
     # ---- phase 2: K2 against its twin -------------------------------------
     print("phase 2: K2 ell_spmv and gather against their twins", flush=True)
     R8 = random_8(n, SEED + 1)
     PL = power_law(n, SEED + 2)
+    sweep = {}          # f64 K2 cases whose group width is swept in phase 4
     for name, M, dts in (("random8", R8, (torch.float32, torch.float64)),
                          ("power_law", PL, (torch.float32, torch.float64))):
         for dt in dts:
@@ -690,20 +800,42 @@ def main():
                   f"Tpad={plan.ell_Tpad})")
             if name == "power_law":
                 check(plan.ell_Tpad > 0, "power-law matrix has a COO tail")
-            vals, tvals = spmv_mod._ell_values(A, plan)
-            tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
-                if plan.ell_Tpad else None
-            args = (vals, plan.ell_cols, g, tail, pad_to)
-            yk = cuda_ell.ell_spmv(*args)
+            args, kw, _ = ell_call(plan, A, g, pad_to)
+            yk = cuda_ell.ell_spmv(*args, **kw)
             yp = cuda_ell.ell_spmv_plain(*args)
+            lib = csr_call(M, dt, dev, xh)
+            yl = lib()
             torch.cuda.synchronize()
             ok, err = close(yk, yp, K2_RTOL[dt])
-            check(ok, f"K2 {name} {dt} max_abs_err={err:.3e} "
+            okl, errl = close(yl, yp[0, : M.shape[0]], K2_RTOL[dt])
+            check(ok and okl, f"K2 {name} {dt} (lanes {kw['lanes']}) "
+                  f"max_abs_err={err:.3e}, the library call's {errl:.3e} "
                   f"(rtol {K2_RTOL[dt]:g} of max|y|; the tail's atomics "
                   "sum in no fixed order)")
             errs["ell"] = max(errs["ell"], err)
-            bench[(name, 1, dt)] = (lambda a=args: cuda_ell.ell_spmv(*a),
-                                    lambda a=args: cuda_ell.ell_spmv_plain(*a))
+            bench[(name, 1, dt)] = (
+                lambda a=args, k=kw: cuda_ell.ell_spmv(*a, **k),
+                lambda a=args: cuda_ell.ell_spmv_plain(*a), lib,
+                ell_bytes(plan, A, dt), 2 * A.nnz())
+            if dt == torch.float64:
+                sweep[name] = (args, kw)
+    # four stacked shards, each with its own rows and tail, in one launch
+    PL4 = power_law(n // 10, SEED + 3)
+    for dt in (torch.float32, torch.float64):
+        be = ht.backend_auto(4, dtype=np.float32 if dt == torch.float32
+                             else np.float64, device=dev)
+        A = ht.DistSparseMatrix.from_scipy(PL4, be)
+        x = ht.DistVector.from_global(xh[: PL4.shape[1]], be)
+        plan, g, pad_to = engine_inputs(A, x)
+        args, kw, _ = ell_call(plan, A, g, pad_to)
+        yk = cuda_ell.ell_spmv(*args, **kw)
+        yp = cuda_ell.ell_spmv_plain(*args)
+        torch.cuda.synchronize()
+        ok, err = close(yk, yp, K2_RTOL[dt])
+        check(ok and plan.ell_Tpad > 0, f"K2 power_law {PL4.shape[0]} rows "
+              f"S=4 {dt} (W={plan.ell_W}, Tpad={plan.ell_Tpad}, lanes "
+              f"{kw['lanes']}) max_abs_err={err:.3e} (rtol {K2_RTOL[dt]:g})")
+        errs["ell"] = max(errs["ell"], err)
     src_h = rng.integers(0, n, D).astype(np.int32)
     src_h[rng.random(D) < 0.03] = -1
     cuda_ell.check_index("gather src", src_h, n, dead_below_zero=True)
@@ -715,10 +847,35 @@ def main():
         torch.cuda.synchronize()
         err = float((xe - xp).abs().max())
         errs["gather"] = max(errs["gather"], err)
-        check(torch.equal(xe, xp), f"K2 gather mode {dt} at {D} slots is "
-              f"bit-exact (max_abs_err={err:.3e})")
-        bench[("gather", 1, dt)] = (lambda a=(xg, src): cuda_ell.gather(*a),
-                                    lambda a=(xg, src): cuda_ell.gather_plain(*a))
+        # the library yardstick: index_select on x with a zero slot appended,
+        # dead slots pointed at it
+        xz = torch.cat([xg[0], xg.new_zeros(1)])
+        idx = torch.where(src[0] < 0, n, src[0])
+        xl = torch.index_select(xz, 0, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(xe, xp) and torch.equal(xl, xp[0]),
+              f"K2 gather mode {dt} at {D} slots is bit-exact "
+              f"(max_abs_err={err:.3e}), and so is index_select")
+        bench[("gather", 1, dt)] = (
+            lambda a=(xg, src): cuda_ell.gather(*a),
+            lambda a=(xg, src): cuda_ell.gather_plain(*a),
+            lambda a=(xz, idx): torch.index_select(a[0], 0, a[1]),
+            D * 4 + n * dt.itemsize + D * dt.itemsize, 0)
+    # the gather at an odd length, from a source table 4 bytes off 16, and
+    # on two shards of an odd width
+    x2 = torch.from_numpy(xh).to(dev, torch.float64).expand(2, n).contiguous()
+    half = D // 2 - 1
+    for what, (xa, sa) in {
+            f"{D - 3} slots": (x2[:1], src[:, : D - 3]),
+            f"{D - 1} slots 4 bytes off 16": (x2[:1], src[:, 1:]),
+            f"2 shards x {half} slots": (x2, src[0, : 2 * half].view(2, half))
+    }.items():
+        check(torch.equal(cuda_ell.gather(xa, sa),
+                          cuda_ell.gather_plain(xa, sa)),
+              f"K2 gather mode float64 at {what} is bit-exact")
+    # the same bytes with the x reads in order: what the random pattern costs
+    src_seq = (torch.arange(D, dtype=torch.int32, device=dev) % n)[None]
+    src_sorted = torch.sort(src[0]).values[None]
 
     # ---- phase 3: the main path through the public API, f64 ----------------
     print("phase 3: main path (public API, f64)", flush=True)
@@ -808,13 +965,24 @@ def main():
     # ---- phase 4: times ----------------------------------------------------
     print(f"phase 4: times on {card} (median of 20, L2 flushed)", flush=True)
     kt = {}
-    for key, (fk, fp) in bench.items():
-        a, b_ = timer.ms(fk), timer.ms(fp)
-        b2, a2 = timer.ms(fp), timer.ms(fk)
-        kt[key] = (min(a, a2), min(b_, b2))
+    for key, (fk, fp, fl, nbytes, flops) in bench.items():
+        ms, plain, lib = turns(timer, (fk, fp, fl))
         name, S, dt = key
-        print(f"  {name} S={S} {str(dt).replace('torch.', '')}: kernel "
-              f"{kt[key][0]:.4f} ms, plain {kt[key][1]:.4f} ms  [{card}]")
+        kt[key] = (ms, plain, lib) + case_line(
+            f"{name} S={S} {str(dt).replace('torch.', '')}", ms, plain, lib,
+            nbytes, flops, dt, card)
+    args, kw = sweep["power_law"]
+    for name, us in device_kernels(lambda: cuda_ell.ell_spmv(*args, **kw)):
+        print(f"  K2 power_law f64 device time: {us:9.1f} us  {name[:60]}  "
+              f"[{card}]", flush=True)
+    for name, (args, kw) in sweep.items():
+        lanes_sweep(timer, f"K2 {name} f64", args, kw, card)
+    xg = torch.from_numpy(xh).to(dev, torch.float64)[None]
+    print(f"  gather f64, {D} slots, same bytes: random src "
+          f"{timer.ms(lambda: cuda_ell.gather(xg, src)):.4f} ms, sorted src "
+          f"{timer.ms(lambda: cuda_ell.gather(xg, src_sorted)):.4f} ms, "
+          f"sequential src {timer.ms(lambda: cuda_ell.gather(xg, src_seq)):.4f}"
+          f" ms  [{card}]", flush=True)
     busy_us, nspans = device_us(lambda: cg(A, b, 20))
     if nspans:
         times["cg_step_device_us"] = busy_us / 20
@@ -834,8 +1002,8 @@ def main():
     Ab, bh_r = banded_design(RIDGE_M, RIDGE_N, SEED + 8)
     N_sc = (Ab.T @ Ab + RIDGE_LAMBDA * sp.eye(RIDGE_N)).tocsr()
     N_sc.sort_indices()
-    bench3 = {}
-    phase5_k3(ht, dev, Ab, N_sc, rng, errs, bench3)
+    bench3, sweep3 = {}, {}
+    phase5_k3(ht, dev, Ab, N_sc, rng, errs, bench3, sweep3)
 
     # ---- phase 6: the ridge path through the public API, f64 ---------------
     print(f"phase 6: ridge path, A {RIDGE_M} x {RIDGE_N} (public API, f64)",
@@ -849,20 +1017,35 @@ def main():
     for key, v in launches6.items():
         launches[key] = launches.get(key, 0) + v
     print(f"main-path launches (phases 3 and 6): {launches}")
-    for key, fns in bench3.items():
-        t3, t2, tp = (timer.ms(f) for f in fns)
-        tp2, t22, t32 = (timer.ms(f) for f in reversed(fns))
-        kt[("k3",) + key] = (min(t3, t32), min(tp, tp2), min(t2, t22))
+    for key, (f3, f2, fp, fl, nbytes, flops) in bench3.items():
+        t3, t2, tp, tl = turns(timer, (f3, f2, fp, fl))
         name, S, dt = key
-        print(f"  K3 {name} S={S} {str(dt).replace('torch.', '')}: K3 "
-              f"{min(t3, t32):.4f} ms, K2 {min(t2, t22):.4f} ms, plain "
-              f"{min(tp, tp2):.4f} ms  [{card}]")
+        kt[("k3",) + key] = (t3, tp, tl) + case_line(
+            f"K3 {name} S={S} {str(dt).replace('torch.', '')} (K2 "
+            f"{t2:.4f} ms)", t3, tp, tl, nbytes, flops, dt, card)
+    for name, (plan, args, kw2, kw3) in sweep3.items():
+        lanes_sweep(timer, f"K2 {name} f64", args, kw2, card)
+        tile_sweep(timer, f"K3 {name} f64", plan, args, kw3, card)
+    f3, f2 = bench3[("N", 1, torch.float64)][:2]
+    w3, w2 = turns(timer, (f3, f2), cold=False)
+    print(f"  K3 N S=1 float64 with L2 warm (no flush; N's tables stay in L2 "
+          f"across CG steps): K3 {w3:.4f} ms, K2 {w2:.4f} ms  [{card}]",
+          flush=True)
 
     # ---- phase 7: the probe tools ------------------------------------------
     print(f"phase 7: the probes (python -m hpclinalg_torch.tools.*, f32) on "
           f"{card}", flush=True)
-    launches7, dv, kp = phase7_probes()
+    launches7, proto, dv, kp = phase7_probes()
     launches["dia"] += launches7["dia"]
+    # the library yardstick of K1 and K4 at the probes' k = 2000 (f32)
+    x2000 = np.random.default_rng(SEED + 11).standard_normal(2000 ** 2)
+    csr2000 = csr_call(laplace2d(2000), torch.float32, dev, x2000)
+    csr2000_ms = min(timer.ms(csr2000), timer.ms(csr2000))
+    print(f"  cuSPARSE CSR SpMV, laplace2d(2000) f32 (the library call of "
+          f"K1 and K4 dia_flat_spmv at k = 2000): {csr2000_ms:.4f} ms  "
+          f"[{card}]", flush=True)
+    k5_lib_ms = probe_bounds(dv, proto, kp, timer, card, {
+        1000: kt[("dia", 1, torch.float32)][2], 2000: csr2000_ms})
 
     # ---- phase 8: the dense path through the public API, f64 ---------------
     print("phase 8: dense path (SpMM, multi-response ridge, dense ops; public "
@@ -872,47 +1055,55 @@ def main():
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
+
+    def timed(key):
+        ms, plain, lib, bms, by = kt[key]
+        return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bms, "bound_by": by}
+
+    def probe(rec, nbytes, lib):
+        bms, by = bound_ms(nbytes)
+        return {"ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "library_ms": lib, "bound_ms": bms, "bound_by": by}
+
     record = {"kernels": [
         {"name": "dia_spmv (K1)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/dia_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_dia.py:60",
          "launches": launches["dia"], "max_abs_err": errs["dia"],
-         "ms": kt[("dia", 1, f64)][0], "plain_ms": kt[("dia", 1, f64)][1]},
+         **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
          "launches": launches["ell"], "max_abs_err": errs["ell"],
-         "ms": kt[("random8", 1, f64)][0],
-         "plain_ms": kt[("random8", 1, f64)][1]},
+         **timed(("random8", 1, f64))},
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:548",
          "launches": launches["gather"], "max_abs_err": errs["gather"],
-         "ms": kt[("gather", 1, f64)][0],
-         "plain_ms": kt[("gather", 1, f64)][1]},
+         **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_resident_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_csr.py:123",
          "launches": launches["resident"], "max_abs_err": errs["resident"],
-         "ms": kt[("k3", "N", 1, f64)][0],
-         "plain_ms": kt[("k3", "N", 1, f64)][1]},
+         **timed(("k3", "N", 1, f64))},
         {"name": "dia_flat_spmv (K4)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/dia_probe.cu",
          "replaces": "tools/probe_dia_kernels.py:222",
          "launches": launches7["dia_flat"],
          "max_abs_err": max(dv[k][v]["err"] for k in dv for v in ("v4", "v1")),
-         "ms": v4["ms"], "plain_ms": v4["plain_ms"]},
+         **probe(v4, (v4["O"] + 2) * v4["n"] * 4, csr2000_ms)},
         {"name": "table_stream (K4)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/dia_probe.cu",
          "replaces": "tools/probe_dia_kernels.py:169",
          "launches": launches7["stream"],
          "max_abs_err": max(r["err"] for r in streams),
-         "ms": dv[2000]["v3"]["ms"], "plain_ms": dv[2000]["v3"]["plain_ms"]},
+         **probe(dv[2000]["v3"], (v4["O"] + 1) * v4["n"] * 4, None)},
         {"name": "kpayload (K5)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/kpayload.cu",
          "replaces": "tools/probe_kpayload.py:40",
          "launches": launches7["kpayload"], "max_abs_err": kp["err"],
-         "ms": kp["ms"], "plain_ms": kp["plain_ms"]},
+         **probe(kp, kp["bound_bytes"], k5_lib_ms)},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -95,8 +95,12 @@ def backends_compatible(a: Backend, b: Backend) -> bool:
 
 def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
                  device=None) -> Backend:
-    """Backend on ``device``, by default the current CUDA device when there
-    is one and the CPU otherwise."""
+    """Backend on ``device``, by default the current CUDA device. Raises
+    when ``device`` is None and there is no CUDA device: the port runs on
+    the CPU only when the caller asks for it (``device="cpu"``)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend_auto: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
+        device = "cuda"
     return Backend(torch.device(device), nshards, dtype, index_dtype)

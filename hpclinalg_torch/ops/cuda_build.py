@@ -38,12 +38,16 @@ def _nvcc() -> str:
 
 @lru_cache(maxsize=None)
 def load_kernel_lib(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu into build/kernels/lib<name>.so if stale and
-    load it. nvcc's resource report (-Xptxas -v) is kept beside the library
-    as <name>.ptxas.txt. Raises when the build fails."""
+    """Compile csrc/<name>.cu into build/kernels/lib<name>.so if it or a
+    header of csrc/ is newer than the library, and load it. nvcc's resource
+    report (-Xptxas -v) is kept beside the library as <name>.ptxas.txt.
+    Raises when the build fails."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so):
+    inputs = [src] + [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                      if f.endswith(".cuh")]
+    if not os.path.exists(so) or max(map(os.path.getmtime, inputs)) \
+            > os.path.getmtime(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         t0 = time.perf_counter()

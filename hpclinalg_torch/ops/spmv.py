@@ -14,9 +14,11 @@ plan is built, with the JAX package's rules and thresholds:
   * ELL(+COO tail) engine for general sparsity: rows padded to width
     ``W = min(maxlen, max(ELL_MIN_WIDTH, ceil(ELL_WIDTH_MULT * mean)))``;
     entries past W spill into a COO tail. Kernel K2 (ops/cuda_ell.py,
-    csrc/ell_spmv.cu).
-  * resident: the ELL engine's tables with the whole gathered x staged in
-    shared memory, taken when the ELL plan has at least ``MIN_NNZ``
+    csrc/ell_spmv.cu), which also reads the plan's row-length table so it
+    never fetches the padding.
+  * resident: the ELL engine's tables with x staged in shared memory, a
+    column window per row tile (recorded with the plan), taken when the
+    ELL plan has at least ``MIN_NNZ``
     entries, at most ``MAX_ELL_BLOWUP`` padding, and a gathered x whose
     bytes fit the device's shared-memory cap per block — the JAX package's
     ``ell_policy_would_accept`` (hpclinalg/ops/pallas_csr.py) with shared
@@ -50,8 +52,8 @@ from ..hashing import partition_hash
 from ..parallel.exchange import ExchangePlan
 from ..solver.native import load_ell
 from .cuda_dia import dia_spmv, pad_trunc
-from .cuda_ell import check_index, ell_spmv
-from .cuda_ell_resident import ell_resident_spmv, smem_cap
+from .cuda_ell import check_index, ell_spmv, lanes_for
+from .cuda_ell_resident import ell_resident_spmv, make_windows, smem_cap
 from .gather import gather_exchange_plan
 
 # DIA engine limits: max distinct offsets, and max storage blowup vs nnz
@@ -103,6 +105,7 @@ class SpMVPlan:
         self.row_phash = partition_hash(st.row_partition)
         self.ell = False
         self.resident_cap = 0   # bytes of gathered x K3 may stage; 0: never
+        self.backend = be
 
         # ---- try the DIA decomposition (host metadata) --------------------
         # distinct-offset census via a presence bitmap, with a sampled early
@@ -262,8 +265,31 @@ class SpMVPlan:
             self.ell_tail_gidx_np = tgidx
             self.ell_tail_gidx = be.tensor(tgidx)
             self.ell_tail_scat = be.tensor(tscat)
+        # the kernels' own table: each row's stored length (they stop there
+        # instead of reading the padding)
+        rowlen = np.zeros((S, st.Lrow), np.int32)
+        for s, ln in enumerate(lens_all):
+            rowlen[s, : ln.size] = np.minimum(ln, W)
+        self.ell_rowlen_np = rowlen
+        self.ell_rowlen = be.tensor(rowlen)
+        self.ell_mean_len = float(rowlen.sum()) / nrows_tot
+        self._layouts = {}
         if st.nnz >= MIN_NNZ and W * nrows_tot <= MAX_ELL_BLOWUP * st.nnz:
             self.resident_cap = smem_cap(be.device)
+
+    def ell_layout(self, dtype: torch.dtype):
+        """(lanes, windows) of the ELL kernels in ``dtype``, built once per
+        dtype: the threads that share a row, and K3's column windows for
+        that many lanes (``make_windows``; None unless the resident engine
+        takes the plan in ``dtype``)."""
+        hit = self._layouts.get(dtype)
+        if hit is None:
+            lanes = lanes_for(self.ell_W, self.ell_mean_len, dtype.itemsize)
+            win = make_windows(self.ell_cols_np, self.ell_rowlen_np, lanes,
+                               dtype, self.backend.device) \
+                if self.engine(dtype) == "resident" else None
+            hit = self._layouts[dtype] = (lanes, win)
+        return hit
 
     def engine(self, dtype: torch.dtype) -> str:
         """The local engine of a product in ``dtype``: "dia", "densify",
@@ -363,6 +389,21 @@ def _ell_values(A, plan: SpMVPlan):
     return hit
 
 
+def ell_kernel_args(A, plan: SpMVPlan, g: torch.Tensor, pad_to: int):
+    """The arguments of K2 (``ell_spmv(*args, **kw)``) and K3
+    (``ell_resident_spmv(*args, **kw, windows=windows)``) for ``A @ x`` on
+    the plan's ELL tables and the gathered x ``g``: (args, kw, windows).
+    The plan checked its tables when it built them, so the wrappers are
+    told so (``checked``) and check only the values and x."""
+    vals, tvals = _ell_values(A, plan)
+    tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
+        if plan.ell_Tpad else None
+    lanes, windows = plan.ell_layout(torch.promote_types(vals.dtype, g.dtype))
+    return ((vals, plan.ell_cols, g, tail, pad_to),
+            {"rowlen": plan.ell_rowlen, "lanes": lanes, "checked": True},
+            windows)
+
+
 def _segment_spmv(A, g: torch.Tensor) -> torch.Tensor:
     """Fallback per-shard CSR SpMV as gather + segment sum (ref kernel:
     _spmv_kernel!, sparse.jl:2055)."""
@@ -400,11 +441,11 @@ def matvec(A, x):
         dt = torch.promote_types(blk.dtype, g.dtype)
         y = torch.bmm(blk.to(dt), g.to(dt).unsqueeze(-1)).squeeze(-1)
     elif engine in ("ell", "resident"):
-        vals, tvals = _ell_values(A, plan)
-        tail = (tvals, plan.ell_tail_rows, plan.ell_tail_gidx) \
-            if plan.ell_Tpad else None
-        kernel = ell_resident_spmv if engine == "resident" else ell_spmv
-        y = kernel(vals, plan.ell_cols, g, tail, pad_to)
+        args, kw, windows = ell_kernel_args(A, plan, g, pad_to)
+        if engine == "resident":
+            y = ell_resident_spmv(*args, **kw, windows=windows)
+        else:
+            y = ell_spmv(*args, **kw)
     else:
         y = _segment_spmv(A, pad_trunc(g, pad_to))
     return DistVector._wrap(y, st.row_partition, A.backend, plan.row_phash)

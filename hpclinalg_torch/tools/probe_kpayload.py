@@ -61,6 +61,11 @@ def main(argv=None) -> dict:
     src_bytes, out_bytes = src.numel() * 4, out.numel() * 4
     gbs = (src_bytes + out_bytes) / per / 1e9
     touched = 1.0 - (1.0 - 1.0 / (16 * F)) ** LANES
+    # the least the function must move: each distinct (plane, lane) a tile
+    # selects, k values of it, read once; out written once; the two tables
+    needed = sum(np.unique(sel_h[t, 0].astype(np.int64) * LANES
+                           + idx_h[t, 0]).size for t in range(ntiles))
+    bound_bytes = needed * k * 4 + out_bytes + 2 * idx_h.size
     card_gbs = (touched * src_bytes + out_bytes) / per / 1e9
     print(f"k={k} F={F} ntiles={ntiles}: {ms:.4f} ms/pass-set  "
           f"{elems / per / 1e9:.1f} Gelem/s(level)  {gbs:.0f} GB/s  "
@@ -73,7 +78,8 @@ def main(argv=None) -> dict:
           f"[{name}]", flush=True)
     return {"k": k, "F": F, "ntiles": ntiles, "ms": ms, "plain_ms": plain_ms,
             "gelems": elems / per / 1e9, "gbs": gbs, "card_gbs": card_gbs,
-            "exact": exact, "err": err}
+            "exact": exact, "err": err, "bound_bytes": bound_bytes,
+            "inputs": (src, idx, sel)}
 
 
 if __name__ == "__main__":

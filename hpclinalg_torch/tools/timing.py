@@ -29,28 +29,54 @@ def card() -> str:
     return out.splitlines()[0]
 
 
+HEAD_START = 64   # flushes queued before the timed launches: about 5 ms
+
+
 class Timer:
     """Median kernel time over 20 launches, CUDA events around each launch,
-    a 256 MiB read before each so L2 (50 MB) starts cold. (A write would
-    leave dirty lines whose write-back lands inside the timed launch.)"""
+    a 256 MiB read before each so L2 (50 MB) starts cold (``cold=False``:
+    no read, so what the launch before left in L2 stays). (A write would
+    leave dirty lines whose write-back lands inside the timed launch.)
+    Every launch is queued before the card reaches it, behind a head start
+    of HEAD_START reads, so the events time the card and not the host's
+    work in the wrapper, and the card runs at its load clocks throughout."""
 
     def __init__(self, dev):
         self.flush = torch.ones(64 << 20, dtype=torch.float32, device=dev)
 
-    def ms(self, fn, reps=20, warm=3):
+    def ms(self, fn, reps=20, warm=3, cold=True):
         for _ in range(warm):
             fn()
-        out = []
-        for _ in range(reps):
+        torch.cuda.synchronize()
+        for _ in range(HEAD_START):
             self.flush.sum()
+        ev = []
+        for _ in range(reps):
+            if cold:
+                self.flush.sum()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
             b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return float(np.median(out))
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+# The H100 SXM's data-sheet peaks (NVIDIA): HBM3 bytes/s and the FP64 and
+# FP32 rates outside the tensor cores, the denominators of a kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+
+
+def bound_ms(nbytes: float, flops: float = 0.0,
+             dtype: torch.dtype = torch.float32) -> tuple[float, str]:
+    """The least time the card could take for work that moves ``nbytes``
+    and does ``flops`` operations in ``dtype``: (ms, "bytes" or
+    "operations", whichever bounds it)."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
 def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:

@@ -81,6 +81,19 @@ def test_backend_identity():
         ht.Backend("cpu", 0)
 
 
+def test_backend_auto_never_falls_back_to_the_cpu(monkeypatch):
+    """With no CUDA device, backend_auto() raises; the CPU is taken only
+    when the caller names it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ht.backend_auto()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ht.backend_auto(4, dtype=np.float32)
+    be = ht.backend_auto(device="cpu")
+    assert be.device == torch.device("cpu") and be.nshards == 1
+    assert ht.backend_auto(4, device=torch.device("cpu")).nshards == 4
+
+
 def test_cache_registry():
     from hpclinalg_torch.cache import cached_plan, plan_cache
 
