@@ -46,10 +46,16 @@ hpclinalg_torch/csrc, then:
      after: proto_dia (K1 on laplace2d(2000) against scipy), dia_variants
      at k = 1000 and 2000 (K1 through the plan and raw, K4 dia_flat_spmv v4
      against its plain version and scipy, v1 against its plain version, K4
-     table_stream skern, v3 and v5 against their plain versions) and
-     probe_kpayload at k = 64, F = 8, 4096 tiles (K5 bit-exact), and prints
-     each probe beside its bound and its library call (cuSPARSE's CSR SpMV
-     on the same Laplacian, K5's one indexing call; none for table_stream);
+     table_stream skern, v3 and v5 on its 16-byte kernel, bit for bit
+     against their plain versions) and probe_kpayload at k = 64, F = 8,
+     4096 tiles (K5 bit-exact, its floors and granule control); then holds
+     table_stream's scalar kernel (an odd row stride, an unaligned table)
+     and K5 at k = 1, F = 1, at k = 13 with every lane in one sector and at
+     F = 255 bit for bit against their plain versions; and prints each
+     probe beside its bound and its library call (cuSPARSE's CSR SpMV on
+     the same Laplacian; torch.add for skern and torch.baddbmm for v3 and
+     v5, each within PROBE_RTOL of the plain version; K5's one indexing
+     call) and K5 beside its sector floor;
   8. drives the dense path through the public API in f64 at S = 1 and 4:
      the random 10^6 x 8 matrix times a 10^6 x 64 DistDenseMatrix against
      scipy (and in f32), laplace2d(1000) times a 10^6 x 8 block, the
@@ -211,18 +217,6 @@ def csr_call(M, dt, dev, xh):
     return lambda: A @ x
 
 
-def turns(timer, fns, cold=True):
-    """Median times of ``fns`` taken in turns, forward then backward (k, p,
-    l, l, p, k for a kernel, its plain version and the library call); the
-    better of the two rounds of each. None stays None. ``cold``: as for
-    ``Timer.ms``."""
-    live = [f for f in fns if f is not None]
-    a = [timer.ms(f, cold=cold) for f in live]
-    b = [timer.ms(f, cold=cold) for f in reversed(live)][::-1]
-    it = iter(min(x, y) for x, y in zip(a, b))
-    return [None if f is None else next(it) for f in fns]
-
-
 def case_line(label, ms, plain, lib, nbytes, flops, dt, card):
     """Print a timed case with its bound; returns (bound ms, bound_by)."""
     bms, by = bound_ms(nbytes, flops, dt)
@@ -239,8 +233,8 @@ def lanes_sweep(timer, label, args, kw, card):
     from hpclinalg_torch.ops import cuda_ell
 
     widths = (1, 2, 4, 8, 16, 32)
-    got = turns(timer, [lambda k=dict(kw, lanes=w): cuda_ell.ell_spmv(*args, **k)
-                        for w in widths])
+    got = timer.turns(*[lambda k=dict(kw, lanes=w):
+                        cuda_ell.ell_spmv(*args, **k) for w in widths])
     print(f"  {label} by group width: " + ", ".join(
         f"{w}{'*' if w == kw['lanes'] else ''} {ms:.4f}"
         for w, ms in zip(widths, got)) + f" ms  [{card}]", flush=True)
@@ -262,7 +256,7 @@ def tile_sweep(timer, label, plan, args, kw3, card):
                    k3.ell_resident_spmv(*args, **k))
         mark = "*" if per * passes == kw3["windows"].tile_rows else ""
         labels.append(f"{passes}{mark}")
-    got = turns(timer, fns)
+    got = timer.turns(*fns)
     print(f"  {label} by row passes a tile ({per} rows a pass): " + ", ".join(
         f"{lab} {ms:.4f}" for lab, ms in zip(labels, got))
         + f" ms  [{card}]", flush=True)
@@ -523,16 +517,67 @@ def phase7_probes():
     check(kp["exact"], f"probe_kpayload k={SPMM_K} F=8: K5 is bit-exact")
     check(all(v > 0 for v in launches.values()),
           "the probes launched K1, K4 (both kernels) and K5")
+    for k, rows in dv.items():
+        for name, rec in rows.items():
+            if "lib_ms" in rec:
+                check(rec["exact"] and rec["vec"] > 1
+                      and rec["lib_rel_err"] <= PROBE_RTOL,
+                      f"dia_variants k={k} {name}: table_stream's 16-byte "
+                      f"kernel ({rec['vec']} elements an access) equals its "
+                      f"plain version bit for bit; the library call within "
+                      f"rel {rec['lib_rel_err']:.2e}")
+    probe_edges()
     return launches, proto, dv, kp
+
+
+def probe_edges():
+    """table_stream's scalar kernel and K5's edge cases, bit for bit against
+    their plain versions (comparison launches, after the counted run)."""
+    from hpclinalg_torch.ops import cuda_dia_probe as k4
+    from hpclinalg_torch.ops import cuda_kpayload as k5
+    from hpclinalg_torch.tools.dia_variants import TR
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 12)
+    O, ntiles = 5, 31
+    flat = torch.from_numpy(rng.standard_normal(ntiles * O * TR + 8,
+                                                dtype=np.float32)).to(dev)
+    c = torch.full((1,), 0.5, dtype=torch.float32, device=dev)
+    for what, args in (
+            ("odd row stride", (flat, c, ntiles, TR, O, O * TR, TR + 1, 1.0,
+                                1)),
+            ("table 4 bytes off 16, depth 2", (flat[1:], c, ntiles, TR, O,
+                                               O * TR, TR, 1.0, 2))):
+        y = k4.table_stream(*args)
+        vec = k4.stream_vector_width(args[0], TR, args[5], args[6], y)
+        check(vec == 1 and torch.equal(y, k4.table_stream_plain(*args)),
+              f"table_stream's scalar kernel at {what} ({ntiles} tiles of "
+              f"{TR}, R = {O}) equals its plain version bit for bit")
+    for k, F, ntiles, one in ((1, 1, 5, False), (13, 8, 300, True),
+                              (9, 255, 40, False)):
+        src = torch.from_numpy(rng.standard_normal(
+            (ntiles, F, k, 128), dtype=np.float32)).to(dev)
+        idx = rng.integers(0, 128, (ntiles, 1, 128)).astype(np.int8)
+        sel = rng.integers(0, F, (ntiles, 1, 128)).astype(np.uint8)
+        if one:     # every lane in sector 5 of plane 0
+            idx, sel = (idx % 8 + 40).astype(np.int8), sel * 0
+        k5.check_tables(idx, sel, F)
+        idx, sel = torch.from_numpy(idx).to(dev), torch.from_numpy(sel).to(dev)
+        check(torch.equal(k5.kpayload(src, idx, sel),
+                          k5.kpayload_plain(src, idx, sel)),
+              f"K5 at k={k} F={F} {ntiles} tiles"
+              + (" with every lane in one sector" if one else "")
+              + " equals its plain version bit for bit")
 
 
 def probe_bounds(dv, proto, kp, timer, card, csr_ms):
     """Each probe beside its bound and its library call: cuSPARSE's CSR
     SpMV on the same Laplacian (``csr_ms`` by k) for the variants that
-    compute a DIA SpMV; none for table_stream (y = c + scale * the sum of
-    table rows, which no single PyTorch call computes); for K5 the one
-    advanced-indexing call ``src[t, sel, j, idx]`` on widened tables, timed
-    here. Returns K5's library time."""
+    compute a DIA SpMV; for table_stream the call dia_variants timed
+    (``torch.add`` for skern, ``torch.baddbmm`` for v3 and v5); for K5 the
+    one advanced-indexing call ``src[t, sel, j, idx]`` on widened tables,
+    timed here, and K5's floors from probe_kpayload. Returns K5's library
+    time."""
     from hpclinalg_torch.tools.dia_variants import TR
 
     def need(name, rec):
@@ -546,8 +591,7 @@ def probe_bounds(dv, proto, kp, timer, card, csr_ms):
         (k, name, name, rec) for k, rows in dv.items()
         for name, rec in rows.items() if "plain_ms" in rec]
     for k, label, name, rec in recs:
-        lib = None if name == "skern" or name[:2] in ("v3", "v5") \
-            else csr_ms[k]
+        lib = rec.get("lib_ms", csr_ms[k])
         case_line(f"probe k={k} {label} float32", rec["ms"], rec["plain_ms"],
                   lib, need(name, rec), 0.0, torch.float32, card)
     src, idx, sel = kp.pop("inputs")
@@ -558,6 +602,12 @@ def probe_bounds(dv, proto, kp, timer, card, csr_ms):
     lib = min(timer.ms(lambda: src[t, sl, j, il]) for _ in range(2))
     case_line(f"K5 kpayload k={kp['k']} F={kp['F']} float32", kp["ms"],
               kp["plain_ms"], lib, kp["bound_bytes"], 0.0, torch.float32, card)
+    print(f"  K5 against its floors: sector floor {kp['sector_floor_ms']:.4f}"
+          f" ms ({100 * kp['sector_floor_ms'] / kp['ms']:.0f} % of it), "
+          f"64-byte floor {kp['granule_floor_ms']:.4f} ms, granule control "
+          f"{kp['even_ms']:.4f} ms, floor (i) every plane whole "
+          f"{kp['floor1_ms']:.4f} ms, floor (ii) the touched sectors by "
+          f"index_select {kp['floor2_ms']:.4f} ms  [{card}]", flush=True)
     return lib
 
 
@@ -966,7 +1016,7 @@ def main():
     print(f"phase 4: times on {card} (median of 20, L2 flushed)", flush=True)
     kt = {}
     for key, (fk, fp, fl, nbytes, flops) in bench.items():
-        ms, plain, lib = turns(timer, (fk, fp, fl))
+        ms, plain, lib = timer.turns(fk, fp, fl)
         name, S, dt = key
         kt[key] = (ms, plain, lib) + case_line(
             f"{name} S={S} {str(dt).replace('torch.', '')}", ms, plain, lib,
@@ -1018,7 +1068,7 @@ def main():
         launches[key] = launches.get(key, 0) + v
     print(f"main-path launches (phases 3 and 6): {launches}")
     for key, (f3, f2, fp, fl, nbytes, flops) in bench3.items():
-        t3, t2, tp, tl = turns(timer, (f3, f2, fp, fl))
+        t3, t2, tp, tl = timer.turns(f3, f2, fp, fl)
         name, S, dt = key
         kt[("k3",) + key] = (t3, tp, tl) + case_line(
             f"K3 {name} S={S} {str(dt).replace('torch.', '')} (K2 "
@@ -1027,7 +1077,7 @@ def main():
         lanes_sweep(timer, f"K2 {name} f64", args, kw2, card)
         tile_sweep(timer, f"K3 {name} f64", plan, args, kw3, card)
     f3, f2 = bench3[("N", 1, torch.float64)][:2]
-    w3, w2 = turns(timer, (f3, f2), cold=False)
+    w3, w2 = timer.turns(f3, f2, cold=False)
     print(f"  K3 N S=1 float64 with L2 warm (no flush; N's tables stay in L2 "
           f"across CG steps): K3 {w3:.4f} ms, K2 {w2:.4f} ms  [{card}]",
           flush=True)
@@ -1098,12 +1148,14 @@ def main():
          "replaces": "tools/probe_dia_kernels.py:169",
          "launches": launches7["stream"],
          "max_abs_err": max(r["err"] for r in streams),
-         **probe(dv[2000]["v3"], (v4["O"] + 1) * v4["n"] * 4, None)},
+         **probe(dv[2000]["v3"], (v4["O"] + 1) * v4["n"] * 4,
+                 dv[2000]["v3"]["lib_ms"])},
         {"name": "kpayload (K5)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/kpayload.cu",
          "replaces": "tools/probe_kpayload.py:40",
          "launches": launches7["kpayload"], "max_abs_err": kp["err"],
-         **probe(kp, kp["bound_bytes"], k5_lib_ms)},
+         **probe(kp, kp["bound_bytes"], k5_lib_ms),
+         "sector_floor_ms": kp["sector_floor_ms"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

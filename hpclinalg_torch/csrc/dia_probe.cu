@@ -22,17 +22,28 @@
 // skern of tools/bench_dia_variants.py (R = 1, scale = 0.125, on the
 // (O, ntiles * TR) table), kern3 of tools/probe_dia_kernels.py (v3: R = O,
 // scale = 1, on the tile-flat table) and kern5 of its ring_probe (v5: v3
-// with two DMAs in flight per chunk), here the template's DEPTH.
+// with two DMAs in flight per chunk), here the launch's depth.
 //
 // Bound: device-memory bytes. dia_flat_spmv moves (O + 2) * ntiles * TR
 // elements (the table once, x and y once each); table_stream R + 1. Both
 // read the table coalesced (consecutive threads, consecutive rows of one
 // diagonal). dia_flat_spmv reads x through the read-only data cache
 // (__ldg): the O shifted reads of one row hit the same few lines, so x
-// costs about one pass from device memory. table_stream's DEPTH is how many
-// rows of a tile, a DEPTH-th of the tile apart, each thread loads before it
-// sums any: the card's counterpart of the TPU probe's copies in flight. A
-// cp.async or TMA ring is later work.
+// costs about one pass from device memory.
+//
+// table_stream is a stream, so what bounds it is the bytes in flight: one
+// 4-byte load a thread moves about 1 TB/s on the H100. Its main kernel,
+// table_stream_vec, reads and writes 16 bytes an access (float4, double2)
+// with the streaming hint (ld/st.global.cs: the bytes are touched once),
+// and gives each thread U = 2 * depth units of 16 bytes along a tile, all
+// U * R loads issued before any sum: depth multiplies the loads in flight
+// a thread (v5_d2, v5_d3 against v3 measure more against fewer). A block
+// takes 256 * U units of one tile. It needs tbl and y 16-byte aligned and
+// TR, tile_stride and row_stride multiples of the vector width (the
+// wrapper picks it by those facts alone). Any other table runs
+// table_stream_scalar: a tile per grid row, one element a thread and row,
+// depth rows of a tile, a depth-th of the tile apart, loaded before any
+// sum.
 // Each term is rounded as product, then sum (no fused multiply-add), in t
 // order: the arithmetic of the plain versions in ops/cuda_dia_probe.py, so
 // the kernels agree with them bit for bit.
@@ -42,6 +53,7 @@
 
 #define PROBE_MAX_OFFSETS 64
 #define STREAM_MAX_R 8
+#define STREAM_THREADS 256  // table_stream_vec's block
 
 struct ProbeOffsets {
   int n;
@@ -55,8 +67,8 @@ __device__ __forceinline__ double mul_add_rn(double acc, double a, double b) {
   return __dadd_rn(acc, __dmul_rn(a, b));
 }
 
-// Both kernels take a tile per grid row (blockIdx.y) and a row of it per
-// thread: no division by TR on the card.
+// dia_flat_spmv and table_stream_scalar take a tile per grid row
+// (blockIdx.y) and a row of it per thread: no division by TR on the card.
 template <typename T>
 __global__ void dia_flat_spmv(const T* __restrict__ tbl,
                               const T* __restrict__ xp, T* __restrict__ y,
@@ -75,10 +87,11 @@ __global__ void dia_flat_spmv(const T* __restrict__ tbl,
 }
 
 template <typename T, int DEPTH>
-__global__ void table_stream(const T* __restrict__ tbl,
-                             const T* __restrict__ c, T* __restrict__ y,
-                             int TR, int R, int64_t tile_stride,
-                             int64_t row_stride, T scale) {
+__global__ void table_stream_scalar(const T* __restrict__ tbl,
+                                    const T* __restrict__ c,
+                                    T* __restrict__ y, int TR, int R,
+                                    int64_t tile_stride, int64_t row_stride,
+                                    T scale) {
   const int Gt = (TR + DEPTH - 1) / DEPTH;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= Gt) return;
@@ -109,6 +122,64 @@ __global__ void table_stream(const T* __restrict__ tbl,
   }
 }
 
+// 16 bytes of T, read and written with the streaming hint (evict first:
+// each byte is touched once)
+__device__ __forceinline__ void ld16(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void ld16(const double* p, double (&v)[2]) {
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = q.x, v[1] = q.y;
+}
+__device__ __forceinline__ void st16(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void st16(double* p, const double (&v)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+// A block per item (chunk blockIdx.x of tile blockIdx.y), a chunk being
+// 256 * U units of W elements: thread x covers units
+// chunk * 256 * U + u * 256 + x, so a warp's access is 512 contiguous bytes.
+template <typename T, int R, int U>
+__global__ void __launch_bounds__(STREAM_THREADS)
+    table_stream_vec(const T* __restrict__ tbl, const T* __restrict__ c,
+                     T* __restrict__ y, int TR, int64_t tile_stride,
+                     int64_t row_stride, T scale) {
+  constexpr int W = 16 / sizeof(T);
+  const int r0 = (int)blockIdx.x * (STREAM_THREADS * U) + (int)threadIdx.x;
+  const T* base = tbl + (int64_t)blockIdx.y * tile_stride;
+  T v[U][R][W];
+  // every load of the thread's U units first ...
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int e = (r0 + u * STREAM_THREADS) * W;
+    if (e < TR) {
+#pragma unroll
+      for (int t = 0; t < R; ++t) ld16(base + t * row_stride + e, v[u][t]);
+    }
+  }
+  // ... then the sums
+  const T c0 = *c;
+  T* yt = y + (int64_t)blockIdx.y * TR;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int e = (r0 + u * STREAM_THREADS) * W;
+    if (e < TR) {
+      T o[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        T acc = c0;
+#pragma unroll
+        for (int t = 0; t < R; ++t) acc = mul_add_rn(acc, scale, v[u][t][i]);
+        o[i] = acc;
+      }
+      st16(yt + e, o);
+    }
+  }
+}
+
 template <typename T>
 static int launch_flat(const void* tbl, const void* xp, void* y,
                        int64_t ntiles, int TR, int O, const int* offsets,
@@ -126,36 +197,92 @@ static int launch_flat(const void* tbl, const void* xp, void* y,
 }
 
 template <typename T>
-static int launch_stream(const void* tbl, const void* c, void* y,
-                         int64_t ntiles, int TR, int R, int64_t tile_stride,
-                         int64_t row_stride, double scale, int depth,
-                         int threads, void* stream) {
-  if (R < 1 || R > STREAM_MAX_R || ntiles < 1 || ntiles > 65535 || TR < 1 ||
-      threads < 1 || depth < 1)
-    return (int)cudaErrorInvalidValue;
+static int launch_scalar(const T* tp, const T* cp, T* yp, int64_t ntiles,
+                         int TR, int R, int64_t tile_stride,
+                         int64_t row_stride, T scale, int depth, int threads,
+                         cudaStream_t st) {
   const int Gt = (TR + depth - 1) / depth;
   dim3 grid((unsigned)((Gt + threads - 1) / threads), (unsigned)ntiles);
-  cudaStream_t st = (cudaStream_t)stream;
-  const T* tp = (const T*)tbl;
-  const T* cp = (const T*)c;
-  T* yp = (T*)y;
   switch (depth) {
     case 1:
-      table_stream<T, 1><<<grid, threads, 0, st>>>(
-          tp, cp, yp, TR, R, tile_stride, row_stride, (T)scale);
+      table_stream_scalar<T, 1><<<grid, threads, 0, st>>>(
+          tp, cp, yp, TR, R, tile_stride, row_stride, scale);
       break;
     case 2:
-      table_stream<T, 2><<<grid, threads, 0, st>>>(
-          tp, cp, yp, TR, R, tile_stride, row_stride, (T)scale);
+      table_stream_scalar<T, 2><<<grid, threads, 0, st>>>(
+          tp, cp, yp, TR, R, tile_stride, row_stride, scale);
       break;
     case 3:
-      table_stream<T, 3><<<grid, threads, 0, st>>>(
-          tp, cp, yp, TR, R, tile_stride, row_stride, (T)scale);
+      table_stream_scalar<T, 3><<<grid, threads, 0, st>>>(
+          tp, cp, yp, TR, R, tile_stride, row_stride, scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int R, int DEPTH>
+static int launch_vec(const T* tp, const T* cp, T* yp, int64_t ntiles,
+                      int TR, int64_t tile_stride, int64_t row_stride,
+                      T scale, cudaStream_t st) {
+  constexpr int U = 2 * DEPTH;
+  constexpr int W = 16 / sizeof(T);
+  const int per = STREAM_THREADS * U * W;       // elements a block
+  dim3 grid((unsigned)((TR + per - 1) / per), (unsigned)ntiles);
+  table_stream_vec<T, R, U><<<grid, STREAM_THREADS, 0, st>>>(
+      tp, cp, yp, TR, tile_stride, row_stride, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int R>
+static int launch_vec_depth(const T* tp, const T* cp, T* yp, int64_t ntiles,
+                            int TR, int64_t tile_stride, int64_t row_stride,
+                            T scale, int depth, cudaStream_t st) {
+  switch (depth) {
+    case 1:
+      return launch_vec<T, R, 1>(tp, cp, yp, ntiles, TR, tile_stride,
+                                 row_stride, scale, st);
+    case 2:
+      return launch_vec<T, R, 2>(tp, cp, yp, ntiles, TR, tile_stride,
+                                 row_stride, scale, st);
+    case 3:
+      return launch_vec<T, R, 3>(tp, cp, yp, ntiles, TR, tile_stride,
+                                 row_stride, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int launch_stream(const void* tbl, const void* c, void* y,
+                         int64_t ntiles, int TR, int R, int64_t tile_stride,
+                         int64_t row_stride, double scale, int depth,
+                         int threads, int vec, void* stream) {
+  constexpr int W = 16 / sizeof(T);
+  if (R < 1 || R > STREAM_MAX_R || ntiles < 1 || ntiles > 65535 || TR < 1 ||
+      threads < 1 || depth < 1 || depth > 3 || (vec != 1 && vec != W))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const T* tp = (const T*)tbl;
+  const T* cp = (const T*)c;
+  T* yp = (T*)y;
+  const T sc = (T)scale;
+  if (vec == 1)
+    return launch_scalar<T>(tp, cp, yp, ntiles, TR, R, tile_stride,
+                            row_stride, sc, depth, threads, st);
+  if ((uintptr_t)tbl % 16 || (uintptr_t)y % 16 || TR % W || tile_stride % W ||
+      row_stride % W || TR > (1 << 30))
+    return (int)cudaErrorMisalignedAddress;
+  switch (R) {
+#define STREAM_R(r)                                                       \
+  case r:                                                                 \
+    return launch_vec_depth<T, r>(tp, cp, yp, ntiles, TR, tile_stride,    \
+                                  row_stride, sc, depth, st);
+    STREAM_R(1) STREAM_R(2) STREAM_R(3) STREAM_R(4)
+    STREAM_R(5) STREAM_R(6) STREAM_R(7) STREAM_R(8)
+#undef STREAM_R
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -176,19 +303,24 @@ int dia_flat_spmv_f64(const void* tbl, const void* xp, void* y,
                              threads, stream);
 }
 
-// depth: 1, 2 or 3 rows loaded per thread before any sum.
+// depth: 1, 2 or 3 (the loads in flight a thread: see the header); vec: 1
+// for table_stream_scalar, the vector width (4 in f32, 2 in f64) for
+// table_stream_vec; threads: table_stream_scalar's block.
 int table_stream_f32(const void* tbl, const void* c, void* y, int64_t ntiles,
                      int TR, int R, int64_t tile_stride, int64_t row_stride,
-                     double scale, int depth, int threads, void* stream) {
+                     double scale, int depth, int threads, int vec,
+                     void* stream) {
   return launch_stream<float>(tbl, c, y, ntiles, TR, R, tile_stride,
-                              row_stride, scale, depth, threads, stream);
+                              row_stride, scale, depth, threads, vec, stream);
 }
 
 int table_stream_f64(const void* tbl, const void* c, void* y, int64_t ntiles,
                      int TR, int R, int64_t tile_stride, int64_t row_stride,
-                     double scale, int depth, int threads, void* stream) {
+                     double scale, int depth, int threads, int vec,
+                     void* stream) {
   return launch_stream<double>(tbl, c, y, ntiles, TR, R, tile_stride,
-                               row_stride, scale, depth, threads, stream);
+                               row_stride, scale, depth, threads, vec,
+                               stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,11 @@ TPU kernels' output length.
 
 A CUDA tensor goes to the kernels in ``csrc/dia_probe.cu``; a CPU tensor
 goes to the plain versions. There is no fallback from one to the other.
+``table_stream`` runs one of two kernels, by ``stream_vector_width``: the
+16-byte kernel when the table and y are 16-byte aligned and ``TR`` and
+both strides are multiples of the vector width, else the scalar one;
+``table_stream_split_plain`` models that split and each kernel's walk
+over y on the CPU.
 They are run by ``python -m hpclinalg_torch.tools.dia_variants`` and
 ``proto_dia``.
 """
@@ -35,7 +40,8 @@ import torch
 
 PROBE_MAX_OFFSETS = 64
 STREAM_MAX_R = 8
-THREADS = 256
+THREADS = 256   # dia_flat_spmv's and table_stream_scalar's block
+STREAM_THREADS = 256   # table_stream_vec's block
 
 
 def _check_offsets(offsets):
@@ -106,6 +112,78 @@ def table_stream_plain(tbl: torch.Tensor, c: torch.Tensor, ntiles: int,
     return y
 
 
+def stream_vector_width(tbl: torch.Tensor, TR: int, tile_stride: int,
+                        row_stride: int, y: torch.Tensor | None = None) -> int:
+    """The elements of one 16-byte access that ``table_stream`` reads and
+    writes: 16 // itemsize when ``tbl`` (and ``y``, if given) start on a
+    16-byte boundary and TR, tile_stride and row_stride are multiples of
+    it (the vector kernel), else 1 (the scalar kernel)."""
+    w = 16 // tbl.element_size()
+    ptrs = [tbl.data_ptr()] + ([] if y is None else [y.data_ptr()])
+    if all(p % 16 == 0 for p in ptrs) and TR % w == 0 \
+            and tile_stride % w == 0 and row_stride % w == 0:
+        return w
+    return 1
+
+
+def stream_units(depth: int) -> int:
+    """16-byte units a thread of the vector kernel loads, each from all R
+    rows, before it sums: 2 * depth (csrc/dia_probe.cu launch_vec)."""
+    return 2 * depth
+
+
+def table_stream_split_plain(tbl: torch.Tensor, c: torch.Tensor, ntiles: int,
+                             TR: int, R: int, tile_stride: int,
+                             row_stride: int, scale: float,
+                             depth: int = 1) -> torch.Tensor:
+    """CPU model of ``table_stream``'s two kernels: the path
+    ``stream_vector_width`` picks, and that kernel's walk over y (the
+    vector kernel's blocks of STREAM_THREADS * U units of one tile, U
+    units a thread, a block apart; the scalar kernel's depth rows a
+    thread, a depth-th of the tile apart), each element summed in the
+    kernels' order. Raises unless every element of y is written exactly
+    once."""
+    _check_stream(tbl, ntiles, TR, R, tile_stride, row_stride)
+    if depth not in (1, 2, 3):
+        raise ValueError(f"table_stream: depth {depth} is not 1, 2 or 3")
+    flat = tbl.reshape(-1)
+    y = torch.empty(ntiles * TR, dtype=tbl.dtype)
+    written = torch.zeros(ntiles * TR, dtype=torch.int64)
+    c0 = c.reshape(1).to(tbl.dtype)
+    w = stream_vector_width(tbl, TR, tile_stride, row_stride, y)
+    if w > 1:
+        U = stream_units(depth)
+        per = STREAM_THREADS * U
+        TRv = TR // w
+        chunks = -(-TRv // per)
+        lane = torch.arange(U)[:, None] * STREAM_THREADS \
+            + torch.arange(STREAM_THREADS)[None, :]
+        walks = []
+        for ch in range(chunks):      # the units of block (ch, tile)
+            r = (ch * per + lane).reshape(-1)
+            walks.append(r[r < TRv])
+        elems = [(r[:, None] * w + torch.arange(w)[None, :]).reshape(-1)
+                 for r in walks]
+    else:
+        Gt = -(-TR // depth)
+        g = torch.arange(Gt)
+        elems = []
+        for d in range(depth):        # row g + d * Gt of thread g
+            r = g + d * Gt
+            elems.append(r[r < TR])
+    for tile in range(ntiles):
+        for e in elems:
+            acc = c0.expand(e.numel())
+            for t in range(R):
+                acc = acc + scale * flat[tile * tile_stride + t * row_stride
+                                         + e]
+            y[tile * TR + e] = acc
+            written[tile * TR + e] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("table_stream's walk missed or repeated rows")
+    return y
+
+
 @lru_cache(maxsize=1)
 def _lib():
     from .cuda_build import load_kernel_lib
@@ -118,7 +196,7 @@ def _lib():
         fn.restype = ci
     for fn in (lib.table_stream_f32, lib.table_stream_f64):
         fn.argtypes = [vp, vp, vp, i64, ci, ci, i64, i64, ctypes.c_double,
-                       ci, ci, vp]
+                       ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -167,7 +245,9 @@ def table_stream(tbl: torch.Tensor, c: torch.Tensor, ntiles: int, TR: int,
                  R: int, tile_stride: int, row_stride: int, scale: float,
                  depth: int = 1) -> torch.Tensor:
     """K4's stream probe. tbl: any contiguous table; c: one element of
-    tbl's dtype; depth: 1, 2 or 3. Returns y (ntiles * TR,)."""
+    tbl's dtype; depth: 1, 2 or 3 (the loads in flight a thread). Runs the
+    vector or the scalar kernel, as ``stream_vector_width`` says. Returns
+    y (ntiles * TR,)."""
     if tbl.device.type == "cpu" and c.device.type == "cpu":
         return table_stream_plain(tbl, c, ntiles, TR, R, tile_stride,
                                   row_stride, scale, depth)
@@ -183,8 +263,9 @@ def table_stream(tbl: torch.Tensor, c: torch.Tensor, ntiles: int, TR: int,
         else lib.table_stream_f32
     from .cuda_build import check, stream_ptr
 
+    vec = stream_vector_width(tbl, TR, tile_stride, row_stride, y)
     rc = fn(tbl.data_ptr(), c.data_ptr(), y.data_ptr(), ntiles, TR, R,
-            tile_stride, row_stride, float(scale), depth, THREADS,
+            tile_stride, row_stride, float(scale), depth, THREADS, vec,
             stream_ptr(tbl))
     check(rc, "table_stream")
     table_stream.launches += 1

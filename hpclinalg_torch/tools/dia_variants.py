@@ -13,7 +13,17 @@ and prints ms, GB/s on the TPU scripts' own traffic formulas and the error:
              it prices the shifted reads; held against its plain version)
   skern      K4 ``table_stream``: row 0 of the (O, ntiles·TR) table, scaled
   v3         K4 ``table_stream``: all O rows of the tile-flat table
-  v5_d2/_d3  v3 with 2 or 3 rows in flight a thread (``ring_probe``)
+  v5_d2/_d3  v3 with 2 or 3 times the loads in flight a thread
+             (``ring_probe``)
+
+Each ``table_stream`` case is also timed against the one PyTorch call that
+computes its function (``lib_ms``; held to its plain version within a
+relative error, ``lib_rel_err``: the library may fuse the multiply-add):
+``torch.add(c, tbl[0], alpha=0.125)`` for skern, and for v3 and v5 one
+strided-batched product that reads the table once,
+``torch.baddbmm(c expanded to (ntiles, 1, TR), ones(ntiles, 1, O), tflat)``.
+Their records say whether the kernel equals its plain version bit for bit
+(``exact``) and which kernel ran (``vec``: the elements of one access).
 
 The TPU scripts time chained loops by slope to cancel the relay's round
 trip, and prescale their tables so the chain stays bounded; here each
@@ -62,19 +72,13 @@ def plan_inputs(Ad, xv):
                   plan.bias_lo, plan.bias_hi, pad_to)
 
 
-def _timed(timer, fk, fp):
-    """(kernel ms, plain ms): the better of two rounds, in turns."""
-    a, b = timer.ms(fk), timer.ms(fp)
-    b2, a2 = timer.ms(fp), timer.ms(fk)
-    return min(a, a2), min(b, b2)
-
-
 def variants(k: int, timer: Timer, name: str, ring: bool = False) -> dict:
     """Every variant at laplace2d(k); returns {variant: record}."""
     import hpclinalg_torch as ht
     from ..ops import cuda_dia
     from ..ops.cuda_dia_probe import (dia_flat_spmv, dia_flat_spmv_plain,
-                                      table_stream, table_stream_plain)
+                                      stream_vector_width, table_stream,
+                                      table_stream_plain)
 
     dev = timer.flush.device
     A = laplace2d(k)
@@ -101,7 +105,7 @@ def variants(k: int, timer: Timer, name: str, ring: bool = False) -> dict:
     ref = torch.from_numpy(A.astype(np.float64) @ xh.astype(np.float64)).to(dev)
     shifted = tuple(o - off0 for o in offsets)
     eq = (O + 2) * n * ELEM            # the scripts' "GB/s-eq" traffic
-    cases = {}
+    cases, libs, streams = {}, {}, {}
     if not ring:
         cases["plain"] = (None, lambda: cuda_dia.dia_spmv_plain(*args),
                           eq, True)
@@ -121,12 +125,18 @@ def variants(k: int, timer: Timer, name: str, ring: bool = False) -> dict:
         cases["skern"] = (lambda: table_stream(*sk),
                           lambda: table_stream_plain(*sk),
                           (O + 1) * npad * ELEM, False)
+        libs["skern"] = lambda: torch.add(c, tbl[0], alpha=0.125)
+        streams["skern"] = sk
+    ones = torch.ones((ntiles, 1, O), dtype=torch.float32, device=dev)
+    cexp = c.view(1, 1, 1).expand(ntiles, 1, TR)
     for depth in (1, 2, 3):
         st = (tflat, c, ntiles, TR, O, O * TR, TR, 1.0, depth)
-        cases["v3" if depth == 1 else f"v5_d{depth}"] = (
-            lambda st=st: table_stream(*st),
-            lambda st=st: table_stream_plain(*st),
-            (O + 1) * n * ELEM, False)
+        key = "v3" if depth == 1 else f"v5_d{depth}"
+        cases[key] = (lambda st=st: table_stream(*st),
+                      lambda st=st: table_stream_plain(*st),
+                      (O + 1) * n * ELEM, False)
+        libs[key] = lambda: torch.baddbmm(cexp, ones, tflat).reshape(-1)
+        streams[key] = st
 
     out = {}
     print(f"laplace2d({k}): n={n} O={O} span={span} ntiles={ntiles} "
@@ -141,7 +151,16 @@ def variants(k: int, timer: Timer, name: str, ring: bool = False) -> dict:
             y = fk()
             torch.cuda.synchronize()
             rec["err"], rec["rel_err"] = max_rel_err(y, yp)
-            rec["ms"], rec["plain_ms"] = _timed(timer, fk, fp)
+            if key in streams:
+                rec["exact"] = bool(torch.equal(y, yp))
+                tb, _, _, tr, _, ts, rs = streams[key][:7]
+                rec["vec"] = stream_vector_width(tb, tr, ts, rs, y)
+                rec["lib_err"], rec["lib_rel_err"] = max_rel_err(
+                    libs[key](), yp)
+                rec["ms"], rec["plain_ms"], rec["lib_ms"] = timer.turns(
+                    fk, fp, libs[key])
+            else:
+                rec["ms"], rec["plain_ms"] = timer.turns(fk, fp)
         rec["gbs"] = traffic / (rec["ms"] / 1e3) / 1e9
         if vs_scipy:
             rec["scipy_err"], rec["scipy_rel_err"] = max_rel_err(
@@ -158,6 +177,11 @@ def variants(k: int, timer: Timer, name: str, ring: bool = False) -> dict:
             line += f"  vs scipy rel {rec['scipy_rel_err']:.2e}"
         if "card_gbs" in rec:
             line += f"  ({rec['card_gbs']:.0f} GB/s moved by the card)"
+        if "lib_ms" in rec:
+            line += (f"  {'torch.add' if key == 'skern' else 'baddbmm'} "
+                     f"{rec['lib_ms']:.4f} ms (rel {rec['lib_rel_err']:.2e})"
+                     f"  {'vector' if rec['vec'] > 1 else 'scalar'} kernel, "
+                     f"bit-exact {rec['exact']}")
         print(line + f"  [{name}]", flush=True)
     return out
 

@@ -3,7 +3,8 @@ checkout of this repository: run it on two checkouts in turns, in one call,
 to compare them on one card.
 
     PYTHONPATH=<checkout> python <repo>/hpclinalg_torch/tools/ell_ab.py \
-        [label] [--cases random8,power_law,N,A,at_cap,gather,gather_f32,cg_N]
+        [label] [--cases random8,power_law,N,A,at_cap,gather,gather_f32,cg_N,
+                         stream,kpayload]
 
 Run as a file, it measures the package on PYTHONPATH (which may be another
 commit unpacked elsewhere) through that package's public API alone, and
@@ -18,8 +19,16 @@ time in µs with the card's name and power limit. ``cg_N`` times the CG
 step on N through the public API instead (``cg``): the median over 5 runs
 of 50 steps of the wall time a step by CUDA events, and of its host
 enqueue time; and the host time of one ``N @ p`` call (the median over 5
-runs of the mean of 200 calls queued without a wait). All cases by
-default; then one JSON line. Runs on a CUDA device only."""
+runs of the mean of 200 calls queued without a wait). ``stream`` times
+the probe kernel K4 ``table_stream`` at dia_variants.py's shapes (f32,
+laplace2d(k)'s O = 5 rows of 131072-row tiles, k = 1000 and 2000): skern
+(R = 1), v3 (R = O) and v5_d2/_d3, an odd row stride (the scalar
+kernel), and the library calls of the same functions (``torch.add``,
+``torch.baddbmm``); ``kpayload`` times K5 at probe_kpayload.py's shape
+(k = 64, F = 8, 4096 tiles), its granule control (every lane on the even
+sector of its pair), floor (i) ``torch.sum(src, dim=1)`` and its library
+call (one indexing call). All cases by default; then one JSON line. Runs
+on a CUDA device only."""
 
 from __future__ import annotations
 
@@ -45,7 +54,9 @@ SLOTS = 8_000_000
 RIDGE = (1_000_000, 16_384, 1e-2)
 CAP_SLOTS = 29_056  # f64 slots in the H100's 232,448 bytes a block
 CASES = ("random8", "power_law", "N", "A", "at_cap", "gather", "gather_f32",
-         "cg_N")
+         "cg_N", "stream", "kpayload")
+TR, O = 131072, 5               # the stream probe's tile and rows
+KP = (64, 8, 4096)              # the k-payload probe's k, F and tiles
 CG_STEPS, CG_RUNS, MATVECS = 50, 5, 200
 
 
@@ -126,6 +137,58 @@ def kernel_times(fn, flush, skip) -> dict:
             for name, v in got.items() if len(v) >= REPS}
 
 
+def stream_calls(dev, rng) -> dict:
+    """{label: call} for the ``stream`` case: K4 table_stream and the
+    library calls of its functions."""
+    from hpclinalg_torch.ops.cuda_dia_probe import table_stream
+    calls = {}
+    for k in (1000, 2000):
+        ntiles = -(-k * k // TR)
+        npad = ntiles * TR
+        tbl = torch.from_numpy(rng.standard_normal((O, npad), dtype=np.float32)
+                               ).to(dev)
+        tflat = tbl.reshape(O, ntiles, TR).permute(1, 0, 2).contiguous()
+        c = torch.full((1,), 0.5, dtype=torch.float32, device=dev)
+        ones = torch.ones((ntiles, 1, O), dtype=torch.float32, device=dev)
+        cexp = c.view(1, 1, 1).expand(ntiles, 1, TR)
+        calls[f"skern k={k}"] = (lambda a=(tbl, c, ntiles, TR, 1, TR, npad,
+                                            0.125): table_stream(*a))
+        calls[f"skern k={k} torch.add"] = (
+            lambda t=tbl, c=c: torch.add(c, t[0], alpha=0.125))
+        for depth in (1, 2, 3):
+            name = "v3" if depth == 1 else f"v5_d{depth}"
+            calls[f"{name} k={k}"] = (
+                lambda a=(tflat, c, ntiles, TR, O, O * TR, TR, 1.0, depth):
+                table_stream(*a))
+        calls[f"v3 odd row stride k={k}"] = (
+            lambda a=(tflat, c, ntiles, TR, O, O * TR, TR - 1, 1.0):
+            table_stream(*a))
+        calls[f"v3 k={k} baddbmm"] = (
+            lambda a=(cexp, ones, tflat): torch.baddbmm(*a))
+    return calls
+
+
+def kpayload_calls(dev, rng) -> dict:
+    """{label: call} for the ``kpayload`` case: K5, its granule control,
+    floor (i) and its library call."""
+    from hpclinalg_torch.ops.cuda_kpayload import kpayload
+    k, F, ntiles = KP
+    src = torch.from_numpy(rng.standard_normal((ntiles, F, k, 128),
+                                               dtype=np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 128, (ntiles, 1, 128))
+                           .astype(np.int8)).to(dev)
+    sel = torch.from_numpy(rng.integers(0, F, (ntiles, 1, 128))
+                           .astype(np.uint8)).to(dev)
+    t = torch.arange(ntiles, device=dev)[:, None, None]
+    j = torch.arange(k, device=dev)[None, :, None]
+    sl, il, even = sel.long(), idx.long(), idx & ~8
+    return {"K5": lambda: kpayload(src, idx, sel, checked=True),
+            "K5 granule control": lambda: kpayload(src, even, sel,
+                                                   checked=True),
+            "floor (i) torch.sum": lambda: torch.sum(src, dim=1),
+            "K5 library call": lambda: src[t, sl, j, il]}
+
+
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     cases = CASES
@@ -145,7 +208,8 @@ def main(argv=None) -> dict:
     be = ht.backend_auto(1, dtype=np.float64, device=dev)
     rng = np.random.default_rng(SEED + 20)
     m, n, lam = RIDGE
-    Ab, _ = banded_design(m, n, SEED + 8)
+    Ab = banded_design(m, n, SEED + 8)[0] \
+        if {"N", "A", "cg_N"} & set(cases) else None
     Nm = (Ab.T @ Ab + lam * sp.eye(n)).tocsr() \
         if {"N", "cg_N"} & set(cases) else None
     mats = {"random8": lambda: random_8(N_ROWS, SEED + 1),
@@ -162,6 +226,10 @@ def main(argv=None) -> dict:
             Md = ht.DistSparseMatrix.from_scipy(M, be)
             x = ht.DistVector.from_global(rng.standard_normal(M.shape[1]), be)
             out[case] = kernel_times(lambda: Md @ x, flush, skip)
+        elif case in ("stream", "kpayload"):
+            make = stream_calls if case == "stream" else kpayload_calls
+            for lab, fn in make(dev, rng).items():
+                out[f"{case} {lab}"] = kernel_times(fn, flush, skip)
         elif case in ("gather", "gather_f32"):
             dt = torch.float32 if case == "gather_f32" else torch.float64
             xg = torch.from_numpy(rng.standard_normal(N_ROWS)).to(dev, dt)[None]
@@ -184,6 +252,9 @@ def main(argv=None) -> dict:
         for k, us in sorted(ks.items(), key=lambda kv: -kv[1]):
             print(f"{label} {case}: {us:8.1f} us  {k[:60]}  [{name}]",
                   flush=True)
+        if len(ks) > 1:
+            print(f"{label} {case}: {sum(ks.values()):8.1f} us  all its "
+                  f"kernels  [{name}]", flush=True)
     print(json.dumps({"label": label, "card": name, "us": out}), flush=True)
     return out
 

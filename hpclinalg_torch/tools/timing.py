@@ -63,6 +63,16 @@ class Timer:
         torch.cuda.synchronize()
         return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
+    def turns(self, *fns, cold=True):
+        """The ms of each of ``fns`` timed in turns, forward then backward
+        (a, b, c, c, b, a): the better of its two rounds. None stays None.
+        ``cold``: as for ``ms``."""
+        live = [f for f in fns if f is not None]
+        a = [self.ms(f, cold=cold) for f in live]
+        b = [self.ms(f, cold=cold) for f in reversed(live)][::-1]
+        it = iter(min(x, y) for x, y in zip(a, b))
+        return [None if f is None else next(it) for f in fns]
+
 
 # The H100 SXM's data-sheet peaks (NVIDIA): HBM3 bytes/s and the FP64 and
 # FP32 rates outside the tensor cores, the denominators of a kernel's bound.
