@@ -5,9 +5,12 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 hpclinalg_torch/csrc, then:
-  1. holds K1 (DIA SpMV) against its plain twin on the 1000^2 Laplacian
-     (n = 10^6) in f32 and f64 at S = 1 and S = 4 stacked shards, and on a
-     wide-span pattern that takes the kernel's second variant;
+  1. holds K1 (DIA SpMV) against its plain twin bit for bit on the 1000^2
+     Laplacian (n = 10^6) in f32 and f64 at S = 1 and S = 4 stacked shards
+     and on a wide-span pattern (offsets +-3*10^5, three staged pieces), all
+     on its 16-byte kernel dia_vec, and on its scalar kernel dia_scalar at
+     an odd Lrow (laplace2d(999)'s table cut to its 998001 rows) and with a
+     g 4 bytes off 16; the kernel that ran is read from a profiler trace;
   2. holds K2 (ELL SpMV + COO tail) against its twin on the random
      10^6 x 8 nnz/row matrix in f32 and f64 and on a power-law matrix with a
      nonempty tail (also a tenth of it on S = 4 shards), and its gather-only
@@ -23,8 +26,10 @@ hpclinalg_torch/csrc, then:
      and index_select for the gather mode, built from the same inputs and
      called by this script only; K2's kernels on the power law by the
      profiler, K2's group width swept 1..32, the gather mode against the
-     same bytes in order; the CG step (wall and host enqueue time, and the
-     card's busy share from a torch.profiler trace) and the build;
+     same bytes in order; each K1 case's device time (torch.profiler,
+     median of 20 cold-L2 runs, the better of two rounds); the CG step (wall and host enqueue time,
+     its device time by kernel and the card's busy share from a
+     torch.profiler trace) and the build;
   5. holds K3 (resident-x ELL SpMV) against its plain version and against K2
      on the same tables: the ridge normal matrix N = A^T A + lambda I (f32
      and f64, S = 1 and 4), the tall design A (f64), and a gathered x at
@@ -80,10 +85,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from hpclinalg_torch.tools.ell_ab import cg
+from hpclinalg_torch.tools.ell_ab import cg, kernel_times
 from hpclinalg_torch.tools.matrices import (banded_design, laplace2d,
                                             power_law, random_8,
-                                            random_cols)
+                                            random_cols, wide_span)
 from hpclinalg_torch.tools.timing import Timer, bound_ms
 
 SEED = 0
@@ -182,6 +187,34 @@ def misaligned(t):
     out = flat[1:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def k1_check(label, args, vector):
+    """K1 on ``args`` against its plain version, bit for bit, and the
+    kernel that ran by its name in a profiler trace: dia_vec where
+    dia_vector_width says 16 bytes (``vector``), else dia_scalar.
+    Returns the max abs error (0.0)."""
+    from hpclinalg_torch.ops import cuda_dia
+
+    dval, g = args[0], args[1]
+    yk = cuda_dia.dia_spmv(*args)
+    yp = cuda_dia.dia_spmv_plain(*args)
+    torch.cuda.synchronize()
+    width = cuda_dia.dia_vector_width(dval, g, yk)
+    names = [name for name, _ in device_kernels(
+        lambda: cuda_dia.dia_spmv(*args), top=8)]
+    ran = "dia_vec" if any("dia_vec" in nm for nm in names) else \
+        "dia_scalar" if any("dia_scalar" in nm for nm in names) else names
+    lay = cuda_dia.dia_layout(tuple(args[2]), dval.element_size(),
+                              cuda_dia.smem_cap(0))
+    want = "dia_vec" if vector else "dia_scalar"
+    err = float((yk - yp).abs().max())
+    check(torch.equal(yk, yp) and (width > 1) == vector and ran == want,
+          f"K1 {label} {dval.dtype}: {ran} (vector width {width}; "
+          f"{lay.threads} threads, {lay.tile}-row tiles, "
+          f"{len(lay.pieces)} staged pieces, {lay.smem_bytes} bytes) equals "
+          f"its plain version bit for bit (max_abs_err {err:.3e})")
+    return err
 
 
 def ell_bytes(plan, Md, dt):
@@ -777,7 +810,8 @@ def main():
     bench = {}
 
     # ---- phase 1: K1 against its twin -------------------------------------
-    print("phase 1: K1 dia_spmv against dia_spmv_plain", flush=True)
+    print("phase 1: K1 dia_spmv against dia_spmv_plain, bit for bit",
+          flush=True)
     for S in (1, 4):
         for dt, npdt in ((torch.float32, np.float32), (torch.float64, np.float64)):
             be = ht.backend_auto(S, dtype=npdt, device=dev)
@@ -789,14 +823,8 @@ def main():
                   f"({len(plan.offsets or ())} offsets in the gathered space)")
             dval = spmv_mod._dia_values(A, plan)
             args = (dval, g, plan.offsets, plan.bias_lo, plan.bias_hi, pad_to)
-            yk = cuda_dia.dia_spmv(*args)
-            yp = cuda_dia.dia_spmv_plain(*args)
-            torch.cuda.synchronize()
-            ok, err = close(yk, yp, K1_RTOL[dt])
-            variant = cuda_dia.dia_variant(plan.offsets, dt)
-            check(ok and variant == 0, f"K1 S={S} {dt} variant={variant} "
-                  f"max_abs_err={err:.3e} (rtol {K1_RTOL[dt]:g} of max|y|)")
-            errs["dia"] = max(errs["dia"], err)
+            errs["dia"] = max(errs["dia"], k1_check(
+                f"laplace2d({K}) S={S}", args, True))
             yh = (A @ x).to_numpy()
             ok, err = close(torch.from_numpy(yh),
                             torch.from_numpy(L1000 @ xh.astype(npdt)),
@@ -807,10 +835,10 @@ def main():
                 lambda a=args: cuda_dia.dia_spmv_plain(*a),
                 csr_call(L1000, dt, dev, xh), dia_bytes(plan, dval, dt),
                 2 * A.nnz())
-    w = 3 * n // 10
-    offs = (-w, 0, w)
-    W3 = sp.diags([np.full(n - w, 0.5), np.full(n, 2.0),
-                   np.full(n - w, -0.5)], offs, format="csr")
+            if S == 1 and dt == torch.float32:
+                lap_f32 = args
+    W3 = wide_span(n)
+    offs = (-(3 * n // 10), 0, 3 * n // 10)
     for dt, npdt in ((torch.float32, np.float32), (torch.float64, np.float64)):
         be = ht.backend_auto(1, dtype=npdt, device=dev)
         A = ht.DistSparseMatrix.from_scipy(W3, be)
@@ -819,19 +847,31 @@ def main():
         check(plan.offsets == offs, "wide-span pattern takes the DIA engine")
         args = (spmv_mod._dia_values(A, plan), g, plan.offsets, plan.bias_lo,
                 plan.bias_hi, pad_to)
-        yk = cuda_dia.dia_spmv(*args)
-        yp = cuda_dia.dia_spmv_plain(*args)
-        torch.cuda.synchronize()
-        ok, err = close(yk, yp, K1_RTOL[dt])
-        variant = cuda_dia.dia_variant(offs, dt)
-        check(ok and variant == 1, f"K1 wide span {dt} variant={variant} "
-              f"max_abs_err={err:.3e}")
-        errs["dia"] = max(errs["dia"], err)
+        errs["dia"] = max(errs["dia"], k1_check("wide span", args, True))
         bench[("dia_wide", 1, dt)] = (
             lambda a=args: cuda_dia.dia_spmv(*a),
             lambda a=args: cuda_dia.dia_spmv_plain(*a),
             csr_call(W3, dt, dev, xh), dia_bytes(plan, args[0], dt),
             2 * A.nnz())
+    # the scalar kernel: an odd Lrow (laplace2d(999)'s table cut to its
+    # 998001 rows) and a g that starts 4 bytes off 16
+    L999 = laplace2d(K - 1)
+    be = ht.backend_auto(1, dtype=np.float64, device=dev)
+    A = ht.DistSparseMatrix.from_scipy(L999, be)
+    x = ht.DistVector.from_global(xh[: L999.shape[0]], be)
+    plan, g, pad_to = engine_inputs(A, x)
+    dval = spmv_mod._dia_values(A, plan)[:, :, : L999.shape[0]].contiguous()
+    args = (dval, g, plan.offsets, plan.bias_lo, plan.bias_hi, pad_to)
+    errs["dia"] = max(errs["dia"], k1_check(
+        f"laplace2d({K - 1}), odd Lrow {L999.shape[0]}", args, False))
+    bench[("dia_odd", 1, torch.float64)] = (
+        lambda a=args: cuda_dia.dia_spmv(*a),
+        lambda a=args: cuda_dia.dia_spmv_plain(*a),
+        csr_call(L999, torch.float64, dev, xh[: L999.shape[0]]),
+        (dval.shape[1] + 2) * dval.shape[2] * 8, 2 * A.nnz())
+    errs["dia"] = max(errs["dia"], k1_check(
+        f"laplace2d({K}), g 4 bytes off 16",
+        (lap_f32[0], misaligned(lap_f32[1])) + lap_f32[2:], False))
 
     # ---- phase 2: K2 against its twin -------------------------------------
     print("phase 2: K2 ell_spmv and gather against their twins", flush=True)
@@ -1021,6 +1061,13 @@ def main():
         kt[key] = (ms, plain, lib) + case_line(
             f"{name} S={S} {str(dt).replace('torch.', '')}", ms, plain, lib,
             nbytes, flops, dt, card)
+    for key in [k for k in bench if k[0].startswith("dia")]:
+        # K1's own kernels by name, the better of two rounds
+        us = min(sum(t for nm, t in kernel_times(
+            bench[key][0], timer.flush.sum, set()).items()
+            if nm.startswith("void dia_")) for _ in range(2))
+        print(f"  {key[0]} S={key[1]} {str(key[2]).replace('torch.', '')} "
+              f"device time: {us:.1f} us  [{card}]", flush=True)
     args, kw = sweep["power_law"]
     for name, us in device_kernels(lambda: cuda_ell.ell_spmv(*args, **kw)):
         print(f"  K2 power_law f64 device time: {us:9.1f} us  {name[:60]}  "
@@ -1033,6 +1080,9 @@ def main():
           f"{timer.ms(lambda: cuda_ell.gather(xg, src_sorted)):.4f} ms, "
           f"sequential src {timer.ms(lambda: cuda_ell.gather(xg, src_seq)):.4f}"
           f" ms  [{card}]", flush=True)
+    for name, us in device_kernels(lambda: cg(A, b, 20), top=8):
+        print(f"  CG step device time by kernel: {us / 20:8.2f} us a step  "
+              f"{name[:60]}  [{card}]", flush=True)
     busy_us, nspans = device_us(lambda: cg(A, b, 20))
     if nspans:
         times["cg_step_device_us"] = busy_us / 20
@@ -1117,7 +1167,8 @@ def main():
                 "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
     record = {"kernels": [
-        {"name": "dia_spmv (K1)", "route": "cuda",
+        {"name": "dia_spmv (K1: dia_vec, dia_scalar)", "route": "cuda",
+         "variants": ["dia_vec", "dia_scalar"],
          "source": "hpclinalg_torch/csrc/dia_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_dia.py:60",
          "launches": launches["dia"], "max_abs_err": errs["dia"],

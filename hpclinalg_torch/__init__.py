@@ -20,7 +20,8 @@ from .sparse import DistSparseMatrix
 from .dense import DistDenseMatrix
 from .lazy import LazyTranspose
 from .ops.diagonal import diag, dropzeros, tril, triu
-from .ops.repartition import repartition, repartition_vector
+from .ops.repartition import (repartition, repartition_dense,
+                              repartition_vector)
 from .ops.sparse_build import spdiagm, speye, sprand_dist, spzeros
 from .solver.api import BackslashCache, Factorization, Symmetric, ldlt, lu, solve
 from .utils.convert import from_reference
@@ -31,7 +32,8 @@ __all__ = [
     "dense_structural_hash", "partition_hash", "sparse_structural_hash",
     "uniform_partition",
     "DistVector", "DistSparseMatrix", "DistDenseMatrix", "LazyTranspose",
-    "diag", "dropzeros", "tril", "triu", "repartition", "repartition_vector",
+    "diag", "dropzeros", "tril", "triu", "repartition",
+    "repartition_dense", "repartition_vector",
     "spdiagm", "speye", "sprand_dist", "spzeros",
     "BackslashCache", "Factorization", "Symmetric", "ldlt", "lu", "solve",
     "from_reference",

@@ -9,30 +9,62 @@
 // Replaces the TPU kernels hpclinalg/ops/pallas_dia.py::_pallas_dia_fn and
 // ::_pallas_dia_fn_monolithic (and the XLA _dia_exec they stand beside).
 //
-// Bound: device-memory bytes, (O + 2) * Lrow * S * sizeof(T) per product
-// (the table is streamed once; x and y once each). The design keeps the
-// table stream coalesced (consecutive threads read consecutive rows of one
-// diagonal) and reads x from device memory once per tile:
-//   * dia_smem: a block stages g[tile + minoff, tile + TR + maxoff) in
-//     shared memory and every diagonal reads its shifted window from there;
-//   * dia_ldg: when the offset span does not fit in shared memory, x is
-//     read through the read-only data cache (__ldg) instead.
-// The wrapper (hpclinalg_torch/ops/cuda_dia.py) picks the variant by span.
-// The offsets travel as a by-value kernel argument, so one compiled kernel
-// serves every pattern of up to DIA_MAX_OFFSETS diagonals.
+// Bound: device-memory bytes, (O + 2) * Lrow * S * sizeof(T) per product:
+// the table is streamed once, x and y once each. A stream is bound by the
+// bytes in flight: one 4-byte load a thread moves about 1 TB/s on the H100,
+// 16-byte loads with the streaming hint about 3.1 TB/s. Design:
+//   * A block takes a tile of blockDim.x * 16 / sizeof(T) rows: a thread
+//     holds 16 bytes of rows, as one unit of W = 16 / sizeof(T) rows
+//     (dia_vec) or as W units of one row (dia_scalar), unit u at tile row
+//     (u * blockDim.x + x) * W, so a warp's access is contiguous. The table
+//     is read kChunk = 10 diagonals at a time: all loads of a chunk are
+//     issued before the first sum (O = 5: five 16-byte loads in flight a
+//     thread). Two or four units a thread, the first design, were at best
+//     2 % faster and up to 7 % slower on the patterns measured (PERF.md).
+//   * The table is read and y written with the streaming hint (ld/st.cs,
+//     evict first: each byte is touched once), leaving L2 to the x windows
+//     that neighbouring tiles read again.
+//   * x is staged in shared memory: the union of the O row intervals
+//     [row0 + off_t, row0 + off_t + tile), merged where they overlap and
+//     widened to 16-byte ends (the pieces, computed on the host by
+//     ops/cuda_dia.py dia_layout), with cp.async issued before the first
+//     table loads and waited for just before x is first read, so the window
+//     fill overlaps the table stream. A wide offset span stages a few pieces
+//     of one tile each instead of the span; x read through __ldg instead
+//     was up to 10 % slower, and on the wide pattern in f32 no faster.
+//     Reads from shared memory are scalar: row + off_t is unaligned.
+//   * dia_vec reads and writes 16 bytes an access (W = 16 / sizeof(T)) and
+//     needs dval, g and y 16-byte aligned, Lrow and g's shard stride
+//     multiples of W; dia_scalar (W = 1) takes every other table, with
+//     element copies into the same window. The wrapper picks one by those
+//     facts (ops/cuda_dia.py dia_vector_width).
 // Each term is rounded as product, then sum (no fused multiply-add), in
-// offset order: the arithmetic of the plain twin and of _dia_exec, so the
-// kernel agrees with its twin bit for bit. The kernel is bound by memory,
-// so the unfused arithmetic costs nothing measurable.
+// offset order: the arithmetic of the plain twin and of _dia_exec's body,
+// so both kernels agree with the twin bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define DIA_MAX_OFFSETS 64
+#define DIA_THREADS 256   // a block's threads at most
 
-struct DiaOffsets {
+// rows a thread: one 16-byte unit (dia_vec), or as many single rows
+// (dia_scalar), so both kernels walk the same tiles; and the diagonals
+// whose table loads a thread issues before its first sum
+template <typename T>
+constexpr int kRows = 16 / (int)sizeof(T);
+constexpr int kChunk = 10;
+
+// The pattern and its window, built once per pattern by the wrapper. Piece p
+// stages g[row0 + lo[p], row0 + lo[p] + len[p]) into win[base[p], + len[p]);
+// diagonal t reads tile row r at win[shift[t] + r].
+struct DiaLayout {
   int n;
-  int off[DIA_MAX_OFFSETS];
+  int npieces;
+  int shift[DIA_MAX_OFFSETS];
+  int lo[DIA_MAX_OFFSETS];
+  int len[DIA_MAX_OFFSETS];
+  int base[DIA_MAX_OFFSETS];
 };
 
 // acc + a*b with two roundings; the intrinsics are never contracted
@@ -43,102 +75,225 @@ __device__ __forceinline__ double mul_add_rn(double acc, double a, double b) {
   return __dadd_rn(acc, __dmul_rn(a, b));
 }
 
+// W elements at p, read and written with the streaming hint
+__device__ __forceinline__ void ldcs(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void ldcs(const double* p, double (&v)[2]) {
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = q.x, v[1] = q.y;
+}
 template <typename T>
-__global__ void dia_smem(const T* __restrict__ dval, const T* __restrict__ g,
-                         T* __restrict__ y, int64_t Lrow, int64_t gcols,
-                         int64_t g_stride, DiaOffsets offs, int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);
+__device__ __forceinline__ void ldcs(const T* p, T (&v)[1]) {
+  v[0] = __ldcs(p);
+}
+__device__ __forceinline__ void stcs(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void stcs(double* p, const double (&v)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+template <typename T>
+__device__ __forceinline__ void stcs(T* p, const T (&v)[1]) {
+  __stcs(p, v[0]);
+}
+
+// BYTES from global to shared memory, asynchronously: 16 bytes bypass L1
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES)
+                 : "memory");
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void dia_tile(const T* __restrict__ dval,
+                                         const T* __restrict__ g,
+                                         T* __restrict__ y, int64_t Lrow,
+                                         int64_t gcols, int64_t g_stride,
+                                         const DiaLayout& lay, T* win) {
+  constexpr int U = kRows<T> / W;
   const int s = blockIdx.y;
-  const int minoff = offs.off[0];
-  const int span = offs.off[offs.n - 1] - minoff;
-  const int64_t row0 = (int64_t)blockIdx.x * tile;
+  const int64_t row0 = (int64_t)blockIdx.x * blockDim.x * kRows<T>;
   const T* gs = g + (int64_t)s * g_stride;
-  const int64_t wlo = row0 + minoff;
-  const int wlen = tile + span;
-  for (int k = threadIdx.x; k < wlen; k += blockDim.x) {
-    const int64_t j = wlo + k;
-    win[k] = (j >= 0 && j < gcols) ? gs[j] : T(0);
+  // 1. the window's pieces, masked at the ends of g
+  for (int p = 0; p < lay.npieces; ++p) {
+    const int64_t c0 = row0 + lay.lo[p];
+    T* dst = win + lay.base[p];
+    for (int k = threadIdx.x * W; k < lay.len[p]; k += blockDim.x * W) {
+      const int64_t c = c0 + k;
+      if (c >= 0 && c + W <= gcols) {
+        cp_async<W * (int)sizeof(T)>(dst + k, gs + c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          dst[k + i] = (c + i >= 0 && c + i < gcols) ? gs[c + i] : T(0);
+      }
+    }
   }
-  __syncthreads();
-  const T* ds = dval + (int64_t)s * offs.n * Lrow;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // 2. the table, kChunk diagonals at a time; the first chunk's loads are in
+  // flight while the window is copied
+  const T* ds = dval + (int64_t)s * lay.n * Lrow;
+  T acc[U][W];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < W; ++i) acc[u][i] = T(0);
+  for (int c = 0; c < lay.n; c += kChunk) {
+    T v[kChunk][U][W];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t i = row0 + (int64_t)(u * blockDim.x + threadIdx.x) * W;
+        if (c + k < lay.n && i < Lrow) {
+          ldcs(ds + (int64_t)(c + k) * Lrow + i, v[k][u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < W; ++e) v[k][u][e] = T(0);
+        }
+      }
+    if (c == 0) {   // every thread reaches it: the trip count is uniform
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (c + k >= lay.n) break;
+      const T* xw = win + lay.shift[c + k];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = (u * blockDim.x + threadIdx.x) * W;
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          acc[u][e] = mul_add_rn(acc[u][e], v[k][u][e], xw[r + e]);
+      }
+    }
+  }
   T* ys = y + (int64_t)s * Lrow;
-  for (int r = threadIdx.x; r < tile; r += blockDim.x) {
-    const int64_t i = row0 + r;
-    if (i >= Lrow) break;
-    T acc = T(0);
-    for (int t = 0; t < offs.n; ++t)
-      acc = mul_add_rn(acc, ds[(int64_t)t * Lrow + i],
-                       win[r + offs.off[t] - minoff]);
-    ys[i] = acc;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = row0 + (int64_t)(u * blockDim.x + threadIdx.x) * W;
+    if (i < Lrow) stcs(ys + i, acc[u]);
   }
 }
 
+// two kernels with names of their own, so a profiler trace shows which ran
 template <typename T>
-__global__ void dia_ldg(const T* __restrict__ dval, const T* __restrict__ g,
-                        T* __restrict__ y, int64_t Lrow, int64_t gcols,
-                        int64_t g_stride, DiaOffsets offs) {
-  const int s = blockIdx.y;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Lrow) return;
-  const T* gs = g + (int64_t)s * g_stride;
-  const T* ds = dval + (int64_t)s * offs.n * Lrow;
-  T acc = T(0);
-  for (int t = 0; t < offs.n; ++t) {
-    const int64_t j = i + offs.off[t];
-    const T xv = (j >= 0 && j < gcols) ? __ldg(gs + j) : T(0);
-    acc = mul_add_rn(acc, ds[(int64_t)t * Lrow + i], xv);
+__global__ void __launch_bounds__(DIA_THREADS)
+    dia_vec(const T* __restrict__ dval, const T* __restrict__ g,
+            T* __restrict__ y, int64_t Lrow, int64_t gcols, int64_t g_stride,
+            const __grid_constant__ DiaLayout lay) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  dia_tile<T, kRows<T>>(dval, g, y, Lrow, gcols, g_stride, lay,
+                        reinterpret_cast<T*>(smem_raw));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DIA_THREADS)
+    dia_scalar(const T* __restrict__ dval, const T* __restrict__ g,
+               T* __restrict__ y, int64_t Lrow, int64_t gcols,
+               int64_t g_stride, const __grid_constant__ DiaLayout lay) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  dia_tile<T, 1>(dval, g, y, Lrow, gcols, g_stride, lay,
+                 reinterpret_cast<T*>(smem_raw));
+}
+
+// One launch. The kernel's shared-memory opt-in (needed above 48 KB) is
+// set once per device and size, not on every launch: the runtime call is
+// host time on a host-bound CG step.
+template <typename T, bool VEC>
+static int launch_kernel(const void* dval, const void* g, void* y, int64_t S,
+                         int64_t Lrow, int64_t gcols, int64_t g_stride,
+                         const DiaLayout& lay, int threads, size_t smem,
+                         cudaStream_t st) {
+  static int c_dev = -1;
+  static size_t c_smem = 0;
+  void (*kernel)(const T*, const T*, T*, int64_t, int64_t, int64_t,
+                 DiaLayout);
+  if constexpr (VEC)
+    kernel = dia_vec<T>;
+  else
+    kernel = dia_scalar<T>;
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev != c_dev || smem > c_smem)) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e == cudaSuccess) c_dev = dev, c_smem = smem;
+    }
+    if (e != cudaSuccess) return (int)e;
   }
-  y[(int64_t)s * Lrow + i] = acc;
+  const int64_t tile = (int64_t)threads * kRows<T>;
+  dim3 grid((unsigned)((Lrow + tile - 1) / tile), (unsigned)S);
+  kernel<<<grid, threads, smem, st>>>((const T*)dval, (const T*)g, (T*)y, Lrow,
+                                      gcols, g_stride, lay);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const void* dval, const void* g, void* y, int64_t S,
-                  int64_t Lrow, int64_t gcols, int64_t g_stride, int O,
-                  const int* offsets, int variant, int tile, int threads,
+                  int64_t Lrow, int64_t gcols, int64_t g_stride,
+                  const void* layout, int threads, int vec, int64_t smem,
                   void* stream) {
-  if (O < 1 || O > DIA_MAX_OFFSETS || S < 1 || S > 65535 || Lrow < 1)
+  constexpr int V = kRows<T>;
+  const DiaLayout& lay = *(const DiaLayout*)layout;
+  if (lay.n < 1 || lay.n > DIA_MAX_OFFSETS || lay.npieces < 1 ||
+      lay.npieces > DIA_MAX_OFFSETS || S < 1 || S > 65535 || Lrow < 1 ||
+      threads < 32 || threads > DIA_THREADS || threads % 32 || smem < 0 ||
+      (vec != 1 && vec != V))
     return (int)cudaErrorInvalidValue;
-  DiaOffsets offs;
-  offs.n = O;
-  for (int t = 0; t < O; ++t) offs.off[t] = offsets[t];
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 0) {
-    const int span = offsets[O - 1] - offsets[0];
-    const size_t smem = (size_t)(tile + span) * sizeof(T);
-    cudaError_t e = cudaFuncSetAttribute(
-        dia_smem<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((unsigned)((Lrow + tile - 1) / tile), (unsigned)S);
-    dia_smem<T><<<grid, threads, smem, st>>>(
-        (const T*)dval, (const T*)g, (T*)y, Lrow, gcols, g_stride, offs, tile);
-  } else {
-    dim3 grid((unsigned)((Lrow + threads - 1) / threads), (unsigned)S);
-    dia_ldg<T><<<grid, threads, 0, st>>>(
-        (const T*)dval, (const T*)g, (T*)y, Lrow, gcols, g_stride, offs);
-  }
-  return (int)cudaGetLastError();
+  if (vec == 1)
+    return launch_kernel<T, false>(dval, g, y, S, Lrow, gcols, g_stride, lay,
+                                   threads, (size_t)smem, st);
+  if ((uintptr_t)dval % 16 || (uintptr_t)g % 16 || (uintptr_t)y % 16 ||
+      Lrow % V || g_stride % V)
+    return (int)cudaErrorMisalignedAddress;
+  return launch_kernel<T, true>(dval, g, y, S, Lrow, gcols, g_stride, lay,
+                                threads, (size_t)smem, st);
 }
 
 extern "C" {
 
-// variant 0: shared-memory window (needs (tile + span) * sizeof(T) bytes of
-// dynamic shared memory); variant 1: __ldg reads. offsets: host array of O
-// ascending ints. Returns cudaGetLastError() after the launch.
+// layout: a host DiaLayout (copied into the launch); threads: a block's
+// threads (a tile is threads * 16 / sizeof(T) rows); vec: 1 for
+// dia_scalar, 16 / sizeof(T) for dia_vec; smem: the window's bytes.
+// Returns cudaGetLastError() after the launch.
 int dia_spmv_f32(const void* dval, const void* g, void* y, int64_t S,
-                 int64_t Lrow, int64_t gcols, int64_t g_stride, int O,
-                 const int* offsets, int variant, int tile, int threads,
+                 int64_t Lrow, int64_t gcols, int64_t g_stride,
+                 const void* layout, int threads, int vec, int64_t smem,
                  void* stream) {
-  return launch<float>(dval, g, y, S, Lrow, gcols, g_stride, O, offsets,
-                       variant, tile, threads, stream);
+  return launch<float>(dval, g, y, S, Lrow, gcols, g_stride, layout, threads,
+                       vec, smem, stream);
 }
 
 int dia_spmv_f64(const void* dval, const void* g, void* y, int64_t S,
-                 int64_t Lrow, int64_t gcols, int64_t g_stride, int O,
-                 const int* offsets, int variant, int tile, int threads,
+                 int64_t Lrow, int64_t gcols, int64_t g_stride,
+                 const void* layout, int threads, int vec, int64_t smem,
                  void* stream) {
-  return launch<double>(dval, g, y, S, Lrow, gcols, g_stride, O, offsets,
-                        variant, tile, threads, stream);
+  return launch<double>(dval, g, y, S, Lrow, gcols, g_stride, layout, threads,
+                        vec, smem, stream);
+}
+
+// The opt-in maximum of dynamic shared memory a block may take on device
+// (the kernels have no static shared memory); a negative cudaError_t on
+// failure.
+int64_t dia_spmv_smem_cap(int device) {
+  int optin = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? (int64_t)optin : -(int64_t)e;
 }
 
 }  // extern "C"

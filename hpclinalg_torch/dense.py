@@ -203,12 +203,14 @@ class DistDenseMatrix:
         return self._like(torch.conj_physical(self.data))
 
     def real(self):
-        return self._like(torch.real(self.data).clone())
+        from .vector import real_part
+
+        return self._like(real_part(self.data))
 
     def imag(self):
-        if not self.data.is_complex():
-            return self._like(torch.zeros_like(self.data))
-        return self._like(torch.imag(self.data).clone())
+        from .vector import imag_part
+
+        return self._like(imag_part(self.data))
 
     def __abs__(self):
         return self._like(torch.abs(self.data))

@@ -32,13 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .cuda_dia import H100_SMEM_CAP
 from .cuda_ell import ell_operands, ell_spmv_plain, on_cpu, rows_per_pass
-
-# The H100's opt-in maximum of dynamic shared memory per block (227 KiB),
-# which the kernel may fill whole (it has no static shared memory). A
-# CPU-resident plan uses this constant so that the CPU tests choose the
-# engines the card would.
-H100_SMEM_CAP = 232448
 
 # The plain version: K3 computes K2's function, so it is K2's plain version.
 ell_resident_spmv_plain = ell_spmv_plain

@@ -309,9 +309,10 @@ class DistSparseMatrix:
         return self._issym
 
     # -- elementwise / scalar (zero-preserving; ref sparse.jl:2261-2569) -------
-    def _map_nz(self, fn, zero_preserving: bool = True) -> "DistSparseMatrix":
-        """Map the stored values; a map that may not keep zeros is masked
-        back to zero on the padding slots."""
+    def map_nonzeros(self, fn, zero_preserving: bool = True) -> "DistSparseMatrix":
+        """``fn`` over the stored values (ref: map/abs/real/...,
+        sparse.jl:2488-2569); a map that may not keep zeros is masked back
+        to zero on the padding slots."""
         out = fn(self.nzval)
         if not zero_preserving:
             out = torch.where(self.structure.nnz_mask_dev, out,
@@ -322,8 +323,8 @@ class DistSparseMatrix:
         from .vector import _finite_scalar
 
         if isinstance(o, (int, float, complex, np.number)):
-            return self._map_nz(lambda v: v * o,
-                                zero_preserving=_finite_scalar(o))
+            return self.map_nonzeros(lambda v: v * o,
+                                     zero_preserving=_finite_scalar(o))
         return NotImplemented
 
     __rmul__ = __mul__
@@ -332,12 +333,46 @@ class DistSparseMatrix:
         from .vector import _finite_scalar
 
         if isinstance(o, (int, float, complex, np.number)):
-            return self._map_nz(lambda v: v / o,
-                                zero_preserving=_finite_scalar(o) and o != 0)
+            return self.map_nonzeros(lambda v: v / o,
+                                     zero_preserving=_finite_scalar(o) and o != 0)
         return NotImplemented
 
     def __neg__(self):
-        return self._map_nz(torch.neg)
+        return self.map_nonzeros(torch.neg)
+
+    def conj(self):
+        return self.map_nonzeros(torch.conj_physical)
+
+    def real(self):
+        from .vector import real_part
+
+        return self.map_nonzeros(real_part)
+
+    def imag(self):
+        from .vector import imag_part
+
+        return self.map_nonzeros(imag_part)
+
+    def __abs__(self):
+        return self.map_nonzeros(torch.abs)
+
+    def abs(self):
+        return self.__abs__()
+
+    def abs2(self):
+        """|a|^2 on the stored values, real result (ref sparse.jl:2488-2569)."""
+        from .vector import abs2
+
+        return self.map_nonzeros(abs2)
+
+    def floor(self):
+        return self.map_nonzeros(torch.floor)
+
+    def ceil(self):
+        return self.map_nonzeros(torch.ceil)
+
+    def round(self):
+        return self.map_nonzeros(torch.round)
 
     # -- operators --------------------------------------------------------------
     def __matmul__(self, o):
@@ -385,6 +420,13 @@ class DistSparseMatrix:
         from .lazy import LazyTranspose
 
         return LazyTranspose(self)
+
+    @property
+    def H(self):
+        """Adjoint (conjugate transpose), lazy (ref: adjoint, sparse.jl:2261)."""
+        from .lazy import LazyTranspose
+
+        return LazyTranspose(self.conj())
 
     def transpose_materialized(self) -> "DistSparseMatrix":
         from .ops import transpose

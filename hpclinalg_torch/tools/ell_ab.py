@@ -4,7 +4,7 @@ to compare them on one card.
 
     PYTHONPATH=<checkout> python <repo>/hpclinalg_torch/tools/ell_ab.py \
         [label] [--cases random8,power_law,N,A,at_cap,gather,gather_f32,cg_N,
-                         stream,kpayload]
+                         stream,kpayload,dia,dia_f32,dia_wide,dia_wide_f32]
 
 Run as a file, it measures the package on PYTHONPATH (which may be another
 commit unpacked elsewhere) through that package's public API alone, and
@@ -27,8 +27,10 @@ kernel), and the library calls of the same functions (``torch.add``,
 ``torch.baddbmm``); ``kpayload`` times K5 at probe_kpayload.py's shape
 (k = 64, F = 8, 4096 tiles), its granule control (every lane on the even
 sector of its pair), floor (i) ``torch.sum(src, dim=1)`` and its library
-call (one indexing call). All cases by default; then one JSON line. Runs
-on a CUDA device only."""
+call (one indexing call). ``dia`` and ``dia_wide`` time ``A @ x`` on
+laplace2d(1000) and on chip_smoke.py's wide-span matrix (offsets
++-3*10^5), K1 by its kernels' names, in f64 (``_f32``: in f32). All cases
+by default; then one JSON line. Runs on a CUDA device only."""
 
 from __future__ import annotations
 
@@ -41,10 +43,12 @@ import scipy.sparse as sp
 import torch
 
 if __package__:
-    from .matrices import banded_design, power_law, random_8, random_cols
+    from .matrices import (banded_design, laplace2d, power_law, random_8,
+                           random_cols, wide_span)
     from .timing import Timer, card, require_cuda
 else:       # run as a file: the package measured is PYTHONPATH's
-    from matrices import banded_design, power_law, random_8, random_cols
+    from matrices import (banded_design, laplace2d, power_law, random_8,
+                          random_cols, wide_span)
     from timing import Timer, card, require_cuda
 
 REPS = 20
@@ -54,7 +58,8 @@ SLOTS = 8_000_000
 RIDGE = (1_000_000, 16_384, 1e-2)
 CAP_SLOTS = 29_056  # f64 slots in the H100's 232,448 bytes a block
 CASES = ("random8", "power_law", "N", "A", "at_cap", "gather", "gather_f32",
-         "cg_N", "stream", "kpayload")
+         "cg_N", "stream", "kpayload", "dia", "dia_f32", "dia_wide",
+         "dia_wide_f32")
 TR, O = 131072, 5               # the stream probe's tile and rows
 KP = (64, 8, 4096)              # the k-payload probe's k, F and tiles
 CG_STEPS, CG_RUNS, MATVECS = 50, 5, 200
@@ -216,15 +221,19 @@ def main(argv=None) -> dict:
             "power_law": lambda: power_law(N_ROWS, SEED + 2),
             "N": lambda: Nm, "A": lambda: Ab,
             "at_cap": lambda: random_cols(300_000, CAP_SLOTS - 8, 4,
-                                          SEED + 6)}
+                                          SEED + 6),
+            "dia": lambda: laplace2d(1000),
+            "dia_wide": lambda: wide_span(N_ROWS)}
     skip = {e.name for e in device_events(lambda: [flush()
                                                    for _ in range(REPS)])}
     out = {}
     for case in cases:
-        if case in mats:
-            M = mats[case]()
-            Md = ht.DistSparseMatrix.from_scipy(M, be)
-            x = ht.DistVector.from_global(rng.standard_normal(M.shape[1]), be)
+        if case.removesuffix("_f32") in mats:
+            M = mats[case.removesuffix("_f32")]()
+            bk = ht.backend_auto(1, dtype=np.float32, device=dev) \
+                if case.endswith("_f32") else be
+            Md = ht.DistSparseMatrix.from_scipy(M, bk)
+            x = ht.DistVector.from_global(rng.standard_normal(M.shape[1]), bk)
             out[case] = kernel_times(lambda: Md @ x, flush, skip)
         elif case in ("stream", "kpayload"):
             make = stream_calls if case == "stream" else kpayload_calls

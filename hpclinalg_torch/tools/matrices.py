@@ -15,6 +15,14 @@ def laplace2d(k):
     return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
 
 
+def wide_span(n):
+    """Three diagonals at offsets -w, 0, w with w = 3n/10 (0.5, 2, -0.5):
+    an offset span far wider than any tile of K1."""
+    w = 3 * n // 10
+    return sp.diags([np.full(n - w, 0.5), np.full(n, 2.0),
+                     np.full(n - w, -0.5)], (-w, 0, w), format="csr")
+
+
 def random_8(n, seed):
     """The random n x n, 8 entries per row matrix of bench.py."""
     rng = np.random.default_rng(seed)

@@ -42,6 +42,22 @@ def _finite_scalar(o) -> bool:
         return False
 
 
+def real_part(t: torch.Tensor) -> torch.Tensor:
+    """The real part as a tensor of its own (a copy, not a view)."""
+    return torch.real(t).clone()
+
+
+def imag_part(t: torch.Tensor) -> torch.Tensor:
+    """The imaginary part; zeros for a real tensor, as numpy and JAX give."""
+    return torch.imag(t).clone() if t.is_complex() else torch.zeros_like(t)
+
+
+def abs2(t: torch.Tensor) -> torch.Tensor:
+    """|t|^2 elementwise as real(t * conj(t)), the JAX package's arithmetic."""
+    return torch.real(t * torch.conj_physical(t)).clone() if t.is_complex() \
+        else t * t
+
+
 def _stack(arr: np.ndarray, p: np.ndarray, dtype) -> np.ndarray:
     """Host (S, L) staging of a global array under partition ``p``."""
     L = padded_size(p)
@@ -157,11 +173,63 @@ class DistVector:
                            device=backend.device)
         return DistVector(data, p, backend)
 
+    @staticmethod
+    def from_local(shards, backend: Backend, dtype=None) -> "DistVector":
+        """Build from per-shard local arrays, one a shard; the partition
+        follows their lengths (ref: HPCVector_local, vectors.jl:76)."""
+        shards = [np.asarray(v) for v in shards]
+        p = np.concatenate([[0], np.cumsum([len(v) for v in shards])]) \
+            .astype(np.int64)
+        out = np.zeros((len(shards), padded_size(p)), dtype=resolve_dtype(
+            backend, np.result_type(*shards), dtype))
+        for s, v in enumerate(shards):
+            out[s, : len(v)] = v
+        return DistVector(backend.tensor(out), p, backend)
+
+    @staticmethod
+    def ones(n: int, backend: Backend, partition=None, dtype=None) -> "DistVector":
+        return DistVector.from_global(np.ones(n), backend, partition=partition,
+                                      dtype=dtype)
+
+    @staticmethod
+    def full(n: int, value, backend: Backend, partition=None,
+             dtype=None) -> "DistVector":
+        return DistVector.from_global(np.full(n, value), backend,
+                                      partition=partition, dtype=dtype)
+
+    @staticmethod
+    def rand(n: int, backend: Backend, partition=None, dtype=None,
+             seed=0) -> "DistVector":
+        """Standard normal entries from numpy's ``default_rng(seed)``: the
+        JAX package's vector for the same seed."""
+        return DistVector.from_global(
+            np.random.default_rng(seed).standard_normal(n), backend,
+            partition=partition, dtype=dtype)
+
     def to_numpy(self) -> np.ndarray:
         """Gather the full vector to the host (ref converter Vector(),
         HPCLinearAlgebra.jl:817-870). Returns a writable copy."""
         if self._lazy_full is not None:
             return self._lazy_full.copy()
+        return self._gather()
+
+    def to_numpy_ro(self) -> np.ndarray:
+        """The full vector on the host, read-only, for callers that only
+        read: cached while the device tensor is unchanged (the same tensor
+        at the same version)."""
+        if self._lazy_full is not None:
+            self._lazy_full.setflags(write=False)   # a private copy
+            return self._lazy_full
+        key = (self.data, self.data._version)
+        cached = getattr(self, "_host_cache", None)
+        if cached is not None and cached[0] is key[0] and cached[1] == key[1]:
+            return cached[2]
+        arr = self._gather()
+        arr.setflags(write=False)
+        self._host_cache = key + (arr,)
+        return arr
+
+    def _gather(self) -> np.ndarray:
         host = self.data.detach().cpu().numpy()
         sizes = partition_sizes(self.partition)
         return np.concatenate([host[s, : sizes[s]] for s in range(len(sizes))])
@@ -217,30 +285,44 @@ class DistVector:
 
         return LazyTranspose(self)
 
-    def _scalar_map(self, fn, o) -> "DistVector":
-        """Elementwise map with a scalar: a host number that keeps zeros
-        skips the re-zeroing; a tensor scalar (e.g. a CG step length still
-        on the device) is never read back to decide it."""
+    def map(self, fn, zero_preserving: bool = False) -> "DistVector":
+        """Elementwise ``fn`` on the (S, L) tensor (ref: broadcasting,
+        vectors.jl:1019-1226); a map that may not keep zeros re-zeroes the
+        padding."""
         out = fn(self.data)
-        if isinstance(o, torch.Tensor) or not _finite_scalar(o):
-            out = self._rezero(out)
-        return self._like(out)
+        return self._like(out if zero_preserving else self._rezero(out))
+
+    @staticmethod
+    def bmap(fn, *vs: "DistVector", zero_preserving: bool = False) -> "DistVector":
+        """``fn`` over several vectors, each aligned to the first one's
+        partition; the padding is re-zeroed unless ``zero_preserving``."""
+        v0 = vs[0]
+        out = fn(v0.data, *[v0._aligned(v).data for v in vs[1:]])
+        return v0._like(out if zero_preserving else v0._rezero(out))
+
+    def _scalar_map(self, fn, o, keeps_zero: bool = True) -> "DistVector":
+        """Elementwise map with a scalar ``o``: a finite host number for
+        which ``fn`` keeps zeros (``keeps_zero``) skips the re-zeroing; a
+        tensor scalar (e.g. a CG step length still on the device) is never
+        read back to decide it."""
+        return self.map(fn, zero_preserving=keeps_zero and not isinstance(
+            o, torch.Tensor) and _finite_scalar(o))
 
     # -- arithmetic ------------------------------------------------------------
     def __add__(self, o):
         if isinstance(o, DistVector):
             return self._like(self.data + self._aligned(o).data)
-        return self._like(self._rezero(self.data + o))
+        return self.map(lambda d: d + o)
 
     __radd__ = __add__
 
     def __sub__(self, o):
         if isinstance(o, DistVector):
             return self._like(self.data - self._aligned(o).data)
-        return self._like(self._rezero(self.data - o))
+        return self.map(lambda d: d - o)
 
     def __rsub__(self, o):
-        return self._like(self._rezero(o - self.data))
+        return self.map(lambda d: o - d)
 
     def __mul__(self, o):
         if isinstance(o, DistVector):
@@ -249,8 +331,50 @@ class DistVector:
 
     __rmul__ = __mul__
 
+    def __truediv__(self, o):
+        if isinstance(o, DistVector):
+            return DistVector.bmap(torch.div, self, o)   # 0 / 0 in the padding
+        return self._scalar_map(lambda d: d / o, o, keeps_zero=not isinstance(
+            o, torch.Tensor) and o != 0)
+
+    def __rtruediv__(self, o):
+        return self.map(lambda d: o / d)
+
+    def __pow__(self, e):
+        is_real = isinstance(e, (int, float, np.integer, np.floating))
+        return self._scalar_map(lambda d: d ** e, e,
+                                keeps_zero=is_real and e > 0)
+
     def __neg__(self):
         return self._like(-self.data)
+
+    def __abs__(self):
+        return self._like(torch.abs(self.data))
+
+    def abs(self):
+        return self.__abs__()
+
+    def abs2(self):
+        """|x|^2 elementwise, real result (ref: abs2, test_sparse_api)."""
+        return self._like(abs2(self.data))
+
+    def floor(self):
+        return self._like(torch.floor(self.data))
+
+    def ceil(self):
+        return self._like(torch.ceil(self.data))
+
+    def round(self):
+        return self._like(torch.round(self.data))
+
+    def real(self):
+        return self._like(real_part(self.data))
+
+    def imag(self):
+        return self._like(imag_part(self.data))
+
+    def conj(self):
+        return self._like(torch.conj_physical(self.data))
 
     # -- reductions (ref: vectors.jl:758-857) ---------------------------------
     def dot(self, other: "DistVector") -> torch.Tensor:
@@ -263,6 +387,39 @@ class DistVector:
 
     def norm(self, p=2) -> torch.Tensor:
         return torch.linalg.vector_norm(self.data.reshape(-1), ord=p)
+
+    def sum(self) -> torch.Tensor:
+        return self.data.sum()
+
+    def mean(self) -> torch.Tensor:
+        return self.data.sum() / self.n
+
+    def _filled(self, fill) -> torch.Tensor:
+        """The data with the padding set to ``fill``."""
+        if not self._has_padding():
+            return self.data
+        return torch.where(self.mask(), self.data,
+                           torch.tensor(fill, dtype=self.data.dtype,
+                                        device=self.data.device))
+
+    def max(self) -> torch.Tensor:
+        """The largest entry; the padding reads as -inf (the least integer)."""
+        dt = self.data.dtype
+        fill = -np.inf if dt.is_floating_point else torch.iinfo(dt).min
+        return self._filled(fill).max()
+
+    def min(self) -> torch.Tensor:
+        dt = self.data.dtype
+        fill = np.inf if dt.is_floating_point else torch.iinfo(dt).max
+        return self._filled(fill).min()
+
+    @property
+    def H(self):
+        """Conjugated row vector, v' (ref: adjoint handling alongside
+        vectors.jl:738): ``v.H @ A`` and ``v.H @ w``."""
+        from .lazy import LazyTranspose
+
+        return LazyTranspose(self.conj())
 
     def __repr__(self):
         return (f"DistVector(n={self.n}, shards={self.backend.nshards}, "
