@@ -68,7 +68,22 @@ hpclinalg_torch/csrc, then:
      multi-RHS sweep with its residual checked through N @ Xh, Xh.T @ Xh,
      A @ Xh - Y) and the dense operations D @ v, D.T @ w, D @ E, D @ B on
      a 10^4 x 512 D; and times the SpMMs, At @ Y and the multi-RHS solve,
-     with the peak device memory of the SpMMs.
+     with the peak device memory of the SpMMs;
+  9. drives the device multifrontal solver through the public API in f64,
+     with the host engine's fallback warning made an error:
+     ldlt(A, method="device", spd=True) on laplace2d(512) (n = 262,144) at
+     S = 1 and 4 against the host engine (residual <= 1e-10, within 1e-9
+     of the host solution), printing bench.py's host_ldlt_factor_262k_ms,
+     device_chol_factor_262k_ms and device_solve_262k_ms, the plan build,
+     the factor's launches, busy share (torch.profiler), largest kernels
+     and peak memory; an indefinite LDL on laplace2d(256) - sigma I and a
+     k = 8 multi-RHS solve on it (residual through N @ X), an LU on
+     unsymmetric values over laplace2d(256) with its transposed solve, a
+     complex-symmetric c128 LDL on laplace2d(64) at S = 4; a
+     solver="device" backend through ht.solve twice (a refactorize-only
+     hit), and a tridiagonal chain tree that warns and takes the host
+     engine. K1 (refinement) and K2's gather mode (the solve's in and out
+     plans) are counted on the solves.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -655,6 +670,274 @@ def peak_mb(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
+DEV_K = 512            # laplace2d(512), n = 262,144: bench.py's device factor
+DEV_K_SMALL = 256      # the LDL, LU and multi-RHS cases
+DEV_K_COMPLEX = 64     # the complex-symmetric case
+DEV_MULTI_K = 8        # right-hand sides of the multi-RHS case
+CHAIN_N = 4000         # the tridiagonal chain tree that falls back to host
+
+
+def timed_ms(fn, n):
+    """Median over n calls of fn's wall time in ms, the queue drained
+    before and after each."""
+    return float(np.median([timed_s(fn)[1] for _ in range(n)])) * 1e3
+
+
+def rel_res(M, x, b):
+    return float(np.linalg.norm(M @ x - b) / np.linalg.norm(b))
+
+
+def between_eigenvalues(k, target):
+    """The midpoint of the two eigenvalues of laplace2d(k) around target:
+    laplace2d(k) - sigma I is then indefinite and as far from singular as
+    a shift near target can make it."""
+    t = 2 - 2 * np.cos(np.arange(1, k + 1) * np.pi / (k + 1))
+    ev = np.sort((t[:, None] + t[None, :]).ravel())
+    i = int(np.searchsorted(ev, target))
+    return 0.5 * (ev[i - 1] + ev[i])
+
+
+def phase9_device_solver(ht, dev, card, times):
+    """The device multifrontal solver through the public API, f64 unless
+    said: ldlt(method="device", spd=True) on laplace2d(512) at S = 1 and 4
+    against the host engine, an indefinite LDL, an LU with its transposed
+    solve, a multi-RHS solve and a complex-symmetric LDL at the smaller
+    sizes, and the solver="device" routing. Returns the launches of K1 and
+    of K2's gather mode over the phase."""
+    import warnings
+
+    from hpclinalg_torch.ops import cuda_dia, cuda_ell
+    from hpclinalg_torch.parallel.mesh import allgather_full
+    from hpclinalg_torch.solver import device_mf
+
+    launches = {"dia": 0, "gather": 0}
+
+    def counted(fn):
+        """fn() with the K1 and gather counts set to 0 just before and read
+        just after; returns (result, the counts)."""
+        cuda_dia.dia_spmv.launches = 0
+        cuda_ell.gather.launches = 0
+        out = fn()
+        c = {"dia": cuda_dia.dia_spmv.launches,
+             "gather": cuda_ell.gather.launches}
+        for key in launches:
+            launches[key] += c[key]
+        return out, c
+
+    def named(kernels):
+        """[(kernel name cut before its template arguments, µs)]."""
+        return [(nm.replace("void ", "").replace("(anonymous namespace)::", "")
+                 .split("<")[0].split("(")[0], round(us, 1))
+                for nm, us in kernels]
+
+    def extend_add_elements(eng):
+        """(elements the extend-add scatters a factor, those of them that
+        are padding: masked zeros at spread slots), from the plan."""
+        total = pad = 0
+        for m in eng.local_levels + eng.top_levels:
+            for _lc, _srcb, _dstb, psl in m.ea:
+                live = (psl >= 0).sum(-1)
+                total += psl.shape[-1] ** 2 * live.numel()
+                pad += psl.shape[-1] ** 2 * live.numel() - int((live ** 2).sum())
+        return total, pad
+
+    def on_card(F):
+        return all(x.device == dev for fac in F.factors[0] + F.factors[1]
+                   for x in fac)
+
+    record = {}
+    # a silent host solve must fail the device cases: the fallback's
+    # warning is an error here
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        L = laplace2d(DEV_K)
+        n = L.shape[0]
+        bh = np.random.default_rng(SEED + 20).standard_normal(n)
+        for S in (1, 4):
+            be = ht.backend_auto(S, dtype=np.float64, device=dev)
+            A = ht.DistSparseMatrix.from_scipy(L, be)
+            b = ht.DistVector.from_global(bh, be)
+            eng, plan_s = timed_s(lambda: device_mf.device_engine(
+                A, "chol", np.float64))
+            F, first_s = timed_s(lambda: ht.ldlt(A, method="device",
+                                                 spd=True))
+            check(isinstance(F, device_mf.DeviceFactorization)
+                  and F.engine is eng and on_card(F),
+                  f"laplace2d({DEV_K}) S={S}: ldlt(method='device', "
+                  f"spd=True) is a DeviceFactorization with its factors on "
+                  f"the card ({len(eng.local_levels)} local + "
+                  f"{len(eng.top_levels)} top levels, TOPM {eng.TOPM})")
+            nnzb = np.concatenate([[0], np.cumsum(A.structure.nnz_local)])
+            Avals = allgather_full(A.nzval, nnzb, be)
+            eps = 1e-10 * float(A.nzval.abs().max())
+            fac_ms = timed_ms(lambda: eng.factor(Avals, eps), 3)
+            _, peak = peak_mb(lambda: eng.factor(Avals, eps))
+            busy_us, nlaunch = device_us(lambda: eng.factor(Avals, eps))
+            top = named(device_kernels(lambda: eng.factor(Avals, eps), top=6))
+            Fh = ht.ldlt(A)
+            host_ms = timed_ms(lambda: Fh.refactorize(A), 3)
+            xhost = Fh.solve(bh)
+            sweeps = []
+            solve_dist = eng.solve_dist
+            eng.solve_dist = lambda *a, **k: (sweeps.append(1),
+                                              solve_dist(*a, **k))[1]
+            try:
+                x, c = counted(lambda: F.solve(b).to_numpy())
+            finally:
+                del eng.solve_dist
+            res = rel_res(L, x, bh)
+            gap = float(np.linalg.norm(x - xhost) / np.linalg.norm(xhost))
+            check(res <= 1e-10 and gap <= 1e-9,
+                  f"laplace2d({DEV_K}) S={S} device solve: residual "
+                  f"{res:.2e} <= 1e-10, {gap:.2e} <= 1e-9 from the host "
+                  f"engine's solution ({len(sweeps) - 1} refinement "
+                  f"sweeps)")
+            check(c["dia"] > 0 and c["gather"] > 0,
+                  f"the solve launched K1 {c['dia']} times (refinement) and "
+                  f"K2's gather mode {c['gather']} times (in/out plans)")
+            solve_ms = timed_ms(lambda: F.solve(b, refine=0), 5)
+            default_ms = timed_ms(lambda: F.solve(b), 3)
+            sbusy_us, slaunch = device_us(lambda: F.solve(b, refine=0))
+            stop = named(device_kernels(lambda: F.solve(b, refine=0), top=6))
+            ea_total, ea_pad = extend_add_elements(eng)
+            rec = {"host_ldlt_factor_262k_ms": host_ms,
+                   "device_chol_factor_262k_ms": fac_ms,
+                   "device_solve_262k_ms": solve_ms,
+                   "device_solve_default_262k_ms": default_ms,
+                   "refine_sweeps": len(sweeps) - 1,
+                   "plan_build_s": plan_s, "first_ldlt_s": first_s,
+                   "factor_launches": nlaunch,
+                   "factor_device_ms": busy_us / 1e3,
+                   "factor_busy_share": busy_us / 1e3 / fac_ms,
+                   "factor_peak_mib": peak,
+                   "max_memory_allocated_mib":
+                       torch.cuda.max_memory_allocated() / 2 ** 20,
+                   "factor_top_kernels_us": top,
+                   "extend_add_elements": ea_total,
+                   "extend_add_padding": ea_pad,
+                   "solve_launches": slaunch,
+                   "solve_device_ms": sbusy_us / 1e3,
+                   "solve_busy_share": sbusy_us / 1e3 / solve_ms,
+                   "solve_top_kernels_us": stop}
+            record[f"chol_262k_S{S}"] = rec
+            print(f"  262k Cholesky S={S} [{card}]: " + json.dumps(rec),
+                  flush=True)
+            del F, Fh, eng, Avals
+            ht.clear_plan_cache("device_mf")
+            torch.cuda.empty_cache()
+
+        # indefinite LDL and the multi-RHS solve on N = laplace2d(256) - sI
+        k2 = DEV_K_SMALL
+        n2 = k2 * k2
+        sig = between_eigenvalues(k2, 0.5)
+        N = (laplace2d(k2) - sig * sp.eye(n2)).tocsr()
+        be = ht.backend_auto(1, dtype=np.float64, device=dev)
+        Nd = ht.DistSparseMatrix.from_scipy(N, be)
+        b2h = np.random.default_rng(SEED + 21).standard_normal(n2)
+        F, t_f = timed_s(lambda: ht.ldlt(Nd, method="device"))
+        (x, c) = counted(lambda: F.solve(ht.DistVector.from_global(
+            b2h, be)).to_numpy())
+        res = rel_res(N, x, b2h)
+        check(res <= 1e-8 and c["dia"] > 0,
+              f"indefinite LDL laplace2d({k2}) - {sig:.6f} I: residual "
+              f"{res:.2e} <= 1e-8, n_perturbed {F.n_perturbed}, growth "
+              f"{F.growth:.4e}, factor + plan {t_f:.2f} s")
+        record["ldl_indefinite"] = {"n_perturbed": F.n_perturbed,
+                                    "growth": F.growth, "residual": res,
+                                    "first_ldlt_s": t_f}
+        Bh = np.random.default_rng(SEED + 22).standard_normal(
+            (n2, DEV_MULTI_K))
+        Bd = ht.DistDenseMatrix.from_global(Bh, be)
+        X, c = counted(lambda: F.solve_matrix(Bd))
+        R = Nd @ X - Bd
+        res = float(R.norm()) / float(Bd.norm())
+        check(isinstance(X, ht.DistDenseMatrix) and res <= 1e-8,
+              f"multi-RHS solve_matrix k={DEV_MULTI_K} on N: residual "
+              f"through N @ X {res:.2e} <= 1e-8")
+        del F
+
+        # LU on unsymmetric values over laplace2d(256)'s own pattern (a
+        # random perturbation of the pattern at this n would fill the
+        # factor densely), with its transposed solve, S = 4
+        Lu = laplace2d(k2)
+        Lu.data = Lu.data * (1.0 + 0.2 * np.random.default_rng(SEED + 23)
+                             .random(Lu.nnz))
+        be4 = ht.backend_auto(4, dtype=np.float64, device=dev)
+        Ud = ht.DistSparseMatrix.from_scipy(Lu, be4)
+        F, t_f = timed_s(lambda: ht.lu(Ud, method="device"))
+        bu = ht.DistVector.from_global(b2h, be4)
+        (x, c) = counted(lambda: F.solve(bu).to_numpy())
+        xt = F.solve(bu, transpose=True).to_numpy()
+        res, rest = rel_res(Lu, x, b2h), rel_res(Lu.T, xt, b2h)
+        check(isinstance(F, device_mf.DeviceFactorization) and on_card(F)
+              and res <= 1e-9 and rest <= 1e-9,
+              f"LU laplace2d({k2}) unsymmetric values S=4: residual "
+              f"{res:.2e}, transposed {rest:.2e} <= 1e-9 (n_perturbed "
+              f"{F.n_perturbed}, factor + plan {t_f:.2f} s)")
+        del F
+
+        # complex-symmetric LDL, c128, S = 4: the complex payloads cross
+        # the exchange as real pairs, and K1 takes complex operands as
+        # real products
+        kc = DEV_K_COMPLEX
+        Ac = (laplace2d(kc).astype(np.complex128)
+              + 0.4j * sp.eye(kc * kc)).tocsr()
+        bec = ht.backend_auto(4, dtype=np.complex128, device=dev)
+        Acd = ht.DistSparseMatrix.from_scipy(Ac, bec)
+        rng = np.random.default_rng(SEED + 24)
+        bch = rng.standard_normal(kc * kc) + 1j * rng.standard_normal(kc * kc)
+        F = ht.ldlt(Acd, method="device")
+        (x, c) = counted(lambda: F.solve(ht.DistVector.from_global(
+            bch, bec)).to_numpy())
+        res = rel_res(Ac, x, bch)
+        check(F.factors[0][0][0].dtype == torch.complex128 and on_card(F)
+              and res <= 1e-10 and c["gather"] > 0 and c["dia"] > 0,
+              f"complex-symmetric LDL laplace2d({kc}) + 0.4i I c128 S=4: "
+              f"residual {res:.2e} <= 1e-10 (gather {c['gather']}, K1 "
+              f"{c['dia']} launches)")
+        del F
+
+        # routing: a solver="device" backend through ht.solve, then new
+        # values on the same pattern: a refactorize-only cache hit
+        bed = ht.backend_auto(1, dtype=np.float64, device=dev,
+                              solver="device")
+        Ld = ht.DistSparseMatrix.from_scipy(laplace2d(k2), bed)
+        bd = ht.DistVector.from_global(b2h, bed)
+        ht.clear_plan_cache("backslash")
+        x1 = ht.solve(Ld, bd).to_numpy()
+        cache = ht.BackslashCache._cache()
+        F1 = next(iter(cache.values()))
+        Ld2 = Ld * 2.0
+        x2 = ht.solve(Ld2, bd).to_numpy()
+        res1 = rel_res(laplace2d(k2), x1, b2h)
+        res2 = rel_res(2.0 * laplace2d(k2), x2, b2h)
+        check(isinstance(F1, device_mf.DeviceFactorization)
+              and len(cache) == 1 and next(iter(cache.values())) is F1
+              and F1.A is Ld2 and max(res1, res2) <= 1e-10,
+              f"solver='device' backend: ht.solve took the device engine, "
+              f"new values a refactorize-only hit (residuals {res1:.2e}, "
+              f"{res2:.2e})")
+    # the chain tree takes the host engine, with the warning
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1],
+                 shape=(CHAIN_N, CHAIN_N)).tocsr()
+    Td = ht.DistSparseMatrix.from_scipy(T, bed)
+    bth = np.random.default_rng(SEED + 25).standard_normal(CHAIN_N)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xc = ht.solve(Td, ht.DistVector.from_global(bth, bed)).to_numpy()
+    Fc = [F for key, F in cache.items() if key[0] == Td.hash]
+    res = rel_res(T, xc, bth)
+    check(any("host" in str(w.message) for w in caught) and len(Fc) == 1
+          and isinstance(Fc[0], ht.Factorization) and res <= 1e-10,
+          f"tridiagonal chain tree n={CHAIN_N}: warned and took the host "
+          f"engine (residual {res:.2e})")
+    ht.clear_plan_cache("backslash")
+    ht.clear_plan_cache("device_mf")
+    times["phase9"] = record
+    return launches
+
+
 def phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times):
     """The dense path through the public API, f64 (and the random SpMM in
     f32), at S = 1 and 4."""
@@ -1152,6 +1435,15 @@ def main():
           "API, f64)", flush=True)
     phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times)
 
+    # ---- phase 9: the device solver through the public API, f64 -------------
+    print(f"phase 9: device solver (public API, f64) on {card}", flush=True)
+    launches9, t9 = timed_s(lambda: phase9_device_solver(ht, dev, card,
+                                                         times))
+    print(f"phase 9 launches (device solves): {launches9}; phase 9 took "
+          f"{t9:.1f} s")
+    for key, v in launches9.items():
+        launches[key] += v
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -1171,7 +1463,9 @@ def main():
          "variants": ["dia_vec", "dia_scalar"],
          "source": "hpclinalg_torch/csrc/dia_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_dia.py:60",
-         "launches": launches["dia"], "max_abs_err": errs["dia"],
+         "launches": launches["dia"],
+         "device_solver_launches": launches9["dia"],
+         "max_abs_err": errs["dia"],
          **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
@@ -1181,7 +1475,9 @@ def main():
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:548",
-         "launches": launches["gather"], "max_abs_err": errs["gather"],
+         "launches": launches["gather"],
+         "device_solver_launches": launches9["gather"],
+         "max_abs_err": errs["gather"],
          **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_resident_spmv.cu",

@@ -31,13 +31,17 @@ def numpy_dtype(dt) -> np.dtype:
 
 @dataclass(frozen=True)
 class Backend:
-    """Configuration: device + shard count + element dtype + index dtype.
-    ``nshards`` plays the role of the reference's MPI world size."""
+    """Configuration: device + shard count + element dtype + index dtype +
+    solver. ``nshards`` plays the role of the reference's MPI world size;
+    ``solver="device"`` routes ``lu``/``ldlt``/``solve`` to the device
+    multifrontal engine (the reference's Solver type parameter selecting
+    MUMPS or cuDSS), ``"multifrontal"`` to the host engine."""
 
     device: torch.device
     nshards: int = 1
     dtype: Any = np.float64
     index_dtype: Any = np.int32
+    solver: str = "multifrontal"
 
     def __post_init__(self):
         dev = torch.device(self.device)
@@ -49,6 +53,8 @@ class Backend:
         object.__setattr__(self, "index_dtype", numpy_dtype(self.index_dtype))
         if self.nshards <= 0:
             raise ValueError("nshards must be positive")
+        if self.solver not in ("multifrontal", "device"):
+            raise ValueError(f"unknown solver {self.solver!r}")
 
     @property
     def complex_capable(self) -> bool:
@@ -94,7 +100,7 @@ def backends_compatible(a: Backend, b: Backend) -> bool:
 
 
 def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
-                 device=None) -> Backend:
+                 device=None, solver: str = "multifrontal") -> Backend:
     """Backend on ``device``, by default the current CUDA device. Raises
     when ``device`` is None and there is no CUDA device: the port runs on
     the CPU only when the caller asks for it (``device="cpu"``)."""
@@ -103,4 +109,4 @@ def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
             raise RuntimeError("backend_auto: no CUDA device; pass "
                                "device='cpu' to run on the CPU")
         device = "cuda"
-    return Backend(torch.device(device), nshards, dtype, index_dtype)
+    return Backend(torch.device(device), nshards, dtype, index_dtype, solver)

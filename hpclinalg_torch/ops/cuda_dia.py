@@ -227,17 +227,40 @@ def smem_cap(index: int) -> int:
     return cap
 
 
+def complex_products(fn, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``fn(vals, x)`` of a product linear in each operand, for complex
+    operands, as real products of their parts: (vr + i vi)(xr + i xi) =
+    (vr xr - vi xi) + i (vr xi + vi xr). Two calls of ``fn`` when one
+    operand is complex, four when both are."""
+    def parts(t):
+        return (t.real, t.imag) if t.is_complex() else (t, None)
+
+    (vr, vi), (xr, xi) = parts(vals), parts(x)
+    re = fn(vr, xr)
+    im = fn(vr, xi) if xi is not None else torch.zeros_like(re)
+    if vi is not None:
+        im = im + fn(vi, xr)
+        if xi is not None:
+            re = re - fn(vi, xi)
+    return torch.complex(re, im)
+
+
 def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
              bias_hi: int, pad_to: int = 0) -> torch.Tensor:
     """K1. dval: (S, O, Lrow) contiguous; g: (S, G) with unit column
     stride; offsets: O strictly ascending ints. Runs the kernel
     ``dia_vector_width`` picks on the window ``dia_layout`` lays out for
-    this device. Returns y (S, Lrow)."""
+    this device; complex operands run as real products
+    (``complex_products``). Returns y (S, Lrow)."""
     if dval.device.type == "cpu" and g.device.type == "cpu":
         return dia_spmv_plain(dval, g, offsets, bias_lo, bias_hi, pad_to)
     if dval.device != g.device or dval.device.type != "cuda":
         raise ValueError(f"dia_spmv: operands on {dval.device} and {g.device}")
     dt = torch.promote_types(dval.dtype, g.dtype)
+    if dt.is_complex:
+        return complex_products(
+            lambda v, x: dia_spmv(v, x, offsets, bias_lo, bias_hi, pad_to),
+            dval, g)
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"dia_spmv kernel takes float32/float64, got {dt}")
     if dval.dim() != 3 or g.dim() != 2 or dval.shape[0] != g.shape[0] \

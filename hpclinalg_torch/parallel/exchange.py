@@ -133,7 +133,8 @@ class ExchangePlan:
     def apply(self, x: torch.Tensor, base: torch.Tensor | None = None,
               add: bool = False) -> torch.Tensor:
         """x: stacked shards (S, L, ...): each slot may carry a payload of
-        trailing axes, which moves whole. Returns (S, out_pad, ...) with the
+        trailing axes, which moves whole (a complex payload as its real
+        pairs). Returns (S, out_pad, ...) with the
         exchanged payload scattered to its destination slots; remaining
         slots are zero, or copied from ``base`` (S, out_pad, ...) when
         provided. ``add=True`` scatter-adds (assembly patterns with
@@ -142,6 +143,13 @@ class ExchangePlan:
         if x.dim() < 2 or x.shape[0] != S:
             raise ValueError(f"exchange payload must be (S={S}, L, ...), got "
                              f"{tuple(x.shape)}")
+        if x.is_complex():
+            # the gather kernel moves real words: a complex slot travels as
+            # its (real, imaginary) pair, one more trailing axis of 2
+            rb = None if base is None else torch.view_as_real(
+                base.to(x.dtype).contiguous())
+            out = self.apply(torch.view_as_real(x.contiguous()), rb, add)
+            return torch.view_as_complex(out)
         L, trail = x.shape[1], tuple(x.shape[2:])
         k = int(np.prod(trail, dtype=np.int64))
         if L < self.src_need:

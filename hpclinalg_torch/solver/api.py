@@ -1,18 +1,20 @@
 """Solver API: lu / ldlt / solve with the reference's backslash cache.
 
-Port of the JAX package's ``hpclinalg/solver/api.py``, host engine only.
+Port of the JAX package's ``hpclinalg/solver/api.py``.
 Reference semantics (src/mumps_factorization.jl, HPCLinearAlgebra.jl:
 626-744):
   * ``lu(A)`` / ``ldlt(A)`` return a Factorization; ``F.solve(b)`` solves.
   * ``solve(A, b)`` (the ``A \\ b`` analogue) consults a cache keyed by
-    (structural hash, kind, dtype): a hit re-uses the symbolic analysis and
-    only refreshes values + refactorizes, through a cached CSR -> permuted
-    CSC value permutation (the reference's ``nzval_perm``).
+    (structural hash, kind, dtype, solver): a hit re-uses the symbolic
+    analysis and only refreshes values + refactorizes, through a cached
+    CSR -> permuted CSC value permutation (the reference's ``nzval_perm``).
   * transpose solves and ``finalize`` are supported.
 
-Numeric phases run in the native C++ engine (native/mf.cpp, BLAS fronts)
-for float64/complex128, with the numpy multifrontal as fallback. The
-device engine (``method="device"``) is a later slice of the port.
+Numeric phases of the host engine run in the native C++ engine
+(native/mf.cpp, BLAS fronts) for float64/complex128, with the numpy
+multifrontal as fallback. ``method="device"`` (or a backend built with
+``solver="device"``) selects the device multifrontal engine
+(``solver/device_mf.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +26,6 @@ from ..cache import cached_plan, plan_cache
 from .multifrontal import NumericFactor, factorize, solve_factored, _PERT_REL
 from .native import NativeFactor, load_mf
 from .symbolic import SymbolicFactor, analyze_best, analyze_fastest
-
-DEVICE_SOLVER_SLICE = ("the device multifrontal solver (hpclinalg/solver/"
-                       "device_mf.py) is ported in a later slice")
 
 
 def _is_complex(dtype) -> bool:
@@ -382,29 +381,59 @@ class Factorization:
                 f"native={self.native is not None})")
 
 
-def _host_method(method):
-    if method == "device":
-        raise NotImplementedError(DEVICE_SOLVER_SLICE)
-    if method not in (None, "host"):
+def _resolve_method(A, method):
+    """None -> the backend's solver selection (ref: the Solver type
+    parameter of HPCBackend routes ``A \\ b`` to MUMPS or cuDSS)."""
+    if method is None:
+        return "device" if A.backend.solver == "device" else "host"
+    if method not in ("host", "device"):
         raise ValueError(f"unknown solver method {method!r}")
+    return method
 
 
-def ldlt(A, method: str | None = None):
+def _device_or_host(A, kind, host_kind):
+    """The device engine's factorization of A, or, for a pattern the wave
+    schedule cannot take (a chain tree), the host engine's with a
+    warning."""
+    from .device_mf import DeviceFactorization, DeviceScheduleError
+
+    try:
+        return DeviceFactorization(A, kind=kind)
+    except DeviceScheduleError as e:
+        _warn_host_fallback(e)
+    return Factorization(A, host_kind)
+
+
+def ldlt(A, method: str | None = None, spd: bool = False):
     """Ref: ldlt (mumps_factorization.jl:259). Symmetric (possibly complex-
-    symmetric) LDLᵀ with static pivoting on the host engine."""
-    _host_method(method)
+    symmetric) LDLᵀ with static pivoting. ``method="device"`` (or a backend
+    built with ``solver="device"``) selects the device multifrontal engine
+    (solver/device_mf.py; the cuDSS analogue): indefinite systems use the
+    blocked unpivoted LDL kernel; ``spd=True`` opts into Cholesky."""
     if A.m != A.ncols:
         raise ValueError("ldlt requires a square matrix")
+    if _resolve_method(A, method) == "device":
+        return _device_or_host(A, "chol" if spd else "ldl", "ldlt")
     return Factorization(A, "ldlt")
 
 
 def lu(A, method: str | None = None):
     """Ref: lu (mumps_factorization.jl:242). Unsymmetric LU on the
-    symmetrized pattern with static pivoting + refinement."""
-    _host_method(method)
+    symmetrized pattern with static pivoting + refinement. ``method=
+    "device"`` (or ``solver="device"`` backends) runs the device
+    multifrontal LU."""
     if A.m != A.ncols:
         raise ValueError("lu requires a square matrix")
+    if _resolve_method(A, method) == "device":
+        return _device_or_host(A, "lu", "lu")
     return Factorization(A, "lu")
+
+
+def _warn_host_fallback(e):
+    import warnings
+
+    warnings.warn(f"device multifrontal unavailable for this pattern "
+                  f"({e}); falling back to the host engine", stacklevel=4)
 
 
 class BackslashCache:
@@ -423,12 +452,19 @@ class BackslashCache:
             symmetric = A.issymmetric()
         kind = "ldlt" if symmetric else "lu"
         # the value dtype is part of the key: a complex-valued matrix on a
-        # real-valued pattern twin must not hit the real factorization
-        key = (A.hash, kind, str(A.dtype), A.backend.key)
+        # real-valued pattern twin must not hit the real factorization; so
+        # is the solver, which picks the engine
+        solver = A.backend.solver
+        key = (A.hash, kind, str(A.dtype), solver, A.backend.key)
         c = BackslashCache._cache()
         F = c.get(key)
         if F is None:
-            F = Factorization(A, kind)
+            if solver == "device":
+                # backend-selected device engine (ref: SolverCuDSS backends
+                # route the backslash to cuDSS)
+                F = _device_or_host(A, "ldl" if symmetric else "lu", kind)
+            else:
+                F = Factorization(A, kind)
             c[key] = F
         elif F._vals_ref is not A.nzval:
             # identity of the value tensor detects value swaps; the strong

@@ -1,0 +1,1252 @@
+"""Distributed multifrontal factorization on the device.
+
+Port of the JAX package's ``hpclinalg/solver/device_mf.py``, the
+counterpart of the reference's distributed direct solvers (MUMPS
+distributed-input factorization, cuDSS multi-GPU with the right-hand side
+staying distributed):
+
+  * **Proportional subtree mapping**: the supernode forest is split into
+    per-shard subtrees balanced by subtree flops; supernodes above the cut
+    form the replicated "top" set.
+  * **Local phase**: each level of every shard's subtrees is one
+    identity-padded (S, B, NF, NF) batch of fronts on the device. Value
+    assembly and the extend-add of the children's updates are static
+    scatters over the shard axis; the front kernels are batched
+    ``torch.linalg`` calls (Cholesky) or the recursive blocked unpivoted
+    LDLᵀ / LU below.
+  * **Cross reduction**: local subtree roots scatter their updates into an
+    (S, CROSS) buffer, summed over the shard axis once.
+  * **Top phase**: the top tree is factored replicated.
+  * **Solves** run the same wave schedule on inverted diagonal blocks, with
+    the right-hand side moved in and the solution moved out by two
+    ``ExchangePlan``s.
+
+Kinds: "chol" (SPD), "ldl" (symmetric or complex-symmetric indefinite,
+unpivoted LDLᵀ with static-pivot perturbation) and "lu" (unsymmetric on the
+symmetrized pattern, unpivoted LU with perturbation). Iterative refinement
+in ``DeviceFactorization`` compensates the perturbations.
+
+Every index table is built once per pattern on the host, checked there,
+and kept as a device tensor in the engine (``cached_plan("device_mf")``).
+Where the reference drops out-of-range scatter slots (``mode="drop"``),
+the port's front and solve buffers carry one sentinel slot past their end:
+the padding of a static table points at it, and it is sliced off or zeroed
+after the scatter. The extend-add's padding, which is most of its slots,
+adds masked zeros at spread in-range slots instead (``_ea_scatter``). So no
+device-side index is ever out of range.
+
+Eager PyTorch runs level by level: there is no fused factor program, no
+compile cache and no RHS width bucketing, and the f32 engine's extended
+refinement carries its solution in f64 with an f64 copy of A for the
+residual (``DeviceFactorization._extended_refine``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..backend import numpy_dtype, torch_dtype
+from ..config import round_up
+from ..ops.cuda_ell import check_index
+from . import symbolic
+from .ordering import amd_order
+
+_PERT_REL = 1e-10  # relative static-pivot perturbation (matches host engine)
+
+# |L| growth ceiling before a device factorization is flagged unstable and
+# its solves escalate to the full-budget extended refinement
+_GROWTH_MAX_DEV = 1e4
+
+
+# ---------------------------------------------------------------------------
+# supernode -> shard mapping
+# ---------------------------------------------------------------------------
+
+def proportional_map(sym: symbolic.SymbolicFactor, S: int) -> np.ndarray:
+    """Owner shard per supernode; -1 marks the replicated top set.
+
+    Proportional mapping: walk the forest from the roots with a shard
+    interval, splitting children proportionally to subtree flops; once an
+    interval narrows to one shard the whole subtree is local to it."""
+    ns = sym.nsuper
+    parent = sym.snode_parent
+    children = [[] for _ in range(ns)]
+    for k in range(ns):
+        p = int(parent[k])
+        if p >= 0:
+            children[p].append(k)
+    w = np.empty(ns)
+    for k in range(ns):
+        nc = int(sym.snode_ptr[k + 1] - sym.snode_ptr[k])
+        nr = len(sym.snode_rows[k])
+        w[k] = nc * float(nc + nr) ** 2 + 1.0
+    subtree = w.copy()
+    for k in range(ns):  # postorder: children precede parents
+        p = int(parent[k])
+        if p >= 0:
+            subtree[p] += subtree[k]
+
+    owner = np.full(ns, -1, dtype=np.int64)
+
+    def assign_whole(root, s):
+        stack = [root]
+        while stack:
+            v = stack.pop()
+            owner[v] = s
+            stack.extend(children[v])
+
+    roots = [k for k in range(ns) if parent[k] < 0]
+    stack = [(roots, 0, S)]
+    while stack:
+        kids, lo, hi = stack.pop()
+        total = sum(subtree[c] for c in kids)
+        acc = 0.0
+        for c in kids:
+            start = lo + (hi - lo) * acc / total
+            acc += subtree[c]
+            end = lo + (hi - lo) * acc / total
+            s0 = max(lo, int(np.floor(start + 1e-9)))
+            s1 = min(hi, int(np.ceil(end - 1e-9)))
+            if s1 - s0 <= 1:
+                assign_whole(c, min(max(s0, lo), hi - 1))
+            else:
+                # owner[c] stays -1 (top, replicated)
+                stack.append((children[c], s0, s1))
+    return owner
+
+
+# ---------------------------------------------------------------------------
+# batched unpivoted front kernels (recursive blocked). Every function takes
+# any number of leading batch axes: (S, B, n, n) for a local level,
+# (B, n, n) for a top level.
+# ---------------------------------------------------------------------------
+
+def _clamp(d, eps):
+    """Static-pivot perturbation: |d| < eps -> sign-preserving +-eps.
+    Returns the clamped pivots and how many were clamped."""
+    bad = torch.abs(d) < eps
+    sign = (d.real >= 0).to(d.real.dtype) * 2 - 1
+    safe = torch.where(bad, (sign * eps).to(d.dtype), d)
+    return safe, bad.sum()
+
+
+def _right_lower_t(L, B, unit=False):
+    """X with X Lᵀ = B for lower-triangular L (plain transpose, also for
+    complex-symmetric factors: never the conjugate)."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True, left=False,
+                                         unitriangular=unit)
+
+
+def _cat2x2(A11, A12, A21, A22):
+    return torch.cat([torch.cat([A11, A12], dim=-1),
+                      torch.cat([A21, A22], dim=-1)], dim=-2)
+
+
+def batched_ldl(F, eps):
+    """Unpivoted LDLᵀ of a (..., n, n) symmetric batch (plain transpose —
+    also valid complex-symmetric), reading only the lower triangle.
+    Returns (unit-lower L, d, n_perturbed)."""
+    n = F.shape[-1]
+    if n == 1:
+        d, npert = _clamp(F[..., 0, 0], eps)
+        return torch.ones_like(F), d[..., None], npert
+    k = n // 2
+    F11, F21, F22 = F[..., :k, :k], F[..., k:, :k], F[..., k:, k:]
+    L11, d1, p1 = batched_ldl(F11, eps)
+    # W = F21 L11^{-T};  L21 = W D1^{-1};  S = F22 - L21 Wᵀ
+    W = _right_lower_t(L11, F21, unit=True)
+    L21 = W / d1[..., None, :]
+    S22 = F22 - L21 @ W.mT
+    L22, d2, p2 = batched_ldl(S22, eps)
+    zt = F.new_zeros(F.shape[:-2] + (k, n - k))
+    return _cat2x2(L11, zt, L21, L22), torch.cat([d1, d2], dim=-1), p1 + p2
+
+
+def batched_lu(F, eps):
+    """Unpivoted LU of a (..., n, n) batch with diagonal perturbation.
+    Returns (unit-lower L, upper U, n_perturbed)."""
+    n = F.shape[-1]
+    if n == 1:
+        u, npert = _clamp(F[..., 0, 0], eps)
+        return torch.ones_like(F), u[..., None, None], npert
+    k = n // 2
+    F11, F12 = F[..., :k, :k], F[..., :k, k:]
+    F21, F22 = F[..., k:, :k], F[..., k:, k:]
+    L11, U11, p1 = batched_lu(F11, eps)
+    U12 = torch.linalg.solve_triangular(L11, F12, upper=False,
+                                        unitriangular=True)
+    L21 = torch.linalg.solve_triangular(U11, F21, upper=True, left=False)
+    S22 = F22 - L21 @ U12
+    L22, U22, p2 = batched_lu(S22, eps)
+    zt = F.new_zeros(F.shape[:-2] + (k, n - k))
+    zb = F.new_zeros(F.shape[:-2] + (n - k, k))
+    return _cat2x2(L11, zt, L21, L22), _cat2x2(U11, U12, zb, U22), p1 + p2
+
+
+def _front_kernel(kind, F, NC, eps):
+    """Factor one padded batch (..., NF, NF). Returns (factor tuple,
+    update (..., NR, NR), n_perturbed, failed): ``failed`` counts the
+    fronts whose Cholesky stopped at a nonpositive pivot."""
+    F11 = F[..., :NC, :NC]
+    F21 = F[..., NC:, :NC]
+    F22 = F[..., NC:, NC:]
+    zero = torch.zeros((), dtype=torch.int64, device=F.device)
+    if kind == "chol":
+        # symmetric fronts are assembled in the lower triangle only; the
+        # mask makes sure the factor never reads the upper one
+        L11, info = torch.linalg.cholesky_ex(torch.tril(F11))
+        L21 = _right_lower_t(L11, F21)
+        U = F22 - L21 @ L21.mT
+        return (L11, L21), U, zero, (info != 0).sum()
+    if kind == "ldl":
+        L11, d, npert = batched_ldl(F11, eps)
+        W = _right_lower_t(L11, F21, unit=True)
+        L21 = W / d[..., None, :]
+        U = F22 - L21 @ W.mT
+        return (L11, d, L21), U, npert, zero
+    F12 = F[..., :NC, NC:]
+    L11, U11, npert = batched_lu(F11, eps)
+    U12 = torch.linalg.solve_triangular(L11, F12, upper=False,
+                                        unitriangular=True)
+    L21 = torch.linalg.solve_triangular(U11, F21, upper=True, left=False)
+    U = F22 - L21 @ U12
+    return (L11, U11, L21, U12), U, npert, zero
+
+
+# ---------------------------------------------------------------------------
+# plan construction (host, cached per structural hash)
+# ---------------------------------------------------------------------------
+
+class _Level:
+    """Static tables of one wave level (local: stacked (S, ...) tensors;
+    top: plain tensors). The scatter destinations ``a_dst`` and ``diag``
+    point their padding at the sentinel slot B·NF·NF. ``crow_add`` is
+    ``crow`` flattened over the shards for the solve's scatter-add, its
+    padding spread over the real slots, where ``crow_live`` masks the
+    values to zero."""
+    __slots__ = ("B", "NC", "NF", "a_src", "a_dst", "diag", "ea", "ea_cross",
+                 "ccol", "crow", "crow_add", "crow_live")
+
+    def __init__(self):
+        self.ea = []        # (child_level, srcb, dstb, psl)
+        self.ea_cross = []  # (co, nrv, dstb, psl, NRX) — top levels only
+
+
+def _pad2_sorted(dst_list, src_list, sentinel, src_fill):
+    """Per row: sort (dst, src) jointly by dst; pad dst with the sentinel
+    slot and src with the zero slot of the values."""
+    W = max((len(r) for r in dst_list), default=0)
+    W = max(W, 1)
+    D = np.full((len(dst_list), W), sentinel, np.int64)
+    Sr = np.full((len(dst_list), W), src_fill, np.int64)
+    for i, (d, s) in enumerate(zip(dst_list, src_list)):
+        o = np.argsort(d, kind="stable")
+        D[i, : len(d)] = d[o]
+        Sr[i, : len(d)] = np.asarray(s)[o]
+    return D, Sr
+
+
+def _pad_sentinel(rows_list, sentinel):
+    """list of sorted 1-D index rows -> (len, W) padded with the sentinel."""
+    W = max((len(r) for r in rows_list), default=0)
+    W = max(W, 1)
+    out = np.full((len(rows_list), W), sentinel, np.int64)
+    for i, r in enumerate(rows_list):
+        out[i, : len(r)] = r
+    return out
+
+
+def _ea_scatter(dstb, psl, NF, u):
+    """Flat front indices (…, C, NR, NR) of the children's updates u
+    (…, C, NR, NR) in their parents' fronts, and the values to add there:
+    dst[c, i, j] = (dstb[c]*NF + psl[c, i])*NF + psl[c, j], computed on the
+    device (never materialized on the host: O(sum nr^2) would sink 3D
+    problems). A padding slot (psl = -1) adds a zero at the child's own
+    (i, j) position, taken mod NF, of its parent's front instead: in range,
+    and spread over many addresses — one drop slot for all of them
+    serializes the atomic adds on it."""
+    ar = torch.arange(psl.shape[-1], device=psl.device) % NF
+    pi = psl[..., :, None]
+    pj = psl[..., None, :]
+    qi = torch.where(pi >= 0, pi, ar[:, None])
+    qj = torch.where(pj >= 0, pj, ar[None, :])
+    dst = (dstb[..., None, None] * NF + qi) * NF + qj
+    return dst, torch.where((pi >= 0) & (pj >= 0), u, 0)
+
+
+def _cross_slots(co, nrv, NRX, CROSS):
+    """Flat cross-buffer slots (…, C, NRX, NRX) of each child's nr x nr
+    update at offset co, and the mask of the real ones. The slots past nr
+    (and those of padding children) spread over the buffer, mod CROSS, for
+    the reason of ``_ea_scatter``: their values are masked to zero."""
+    ii = torch.arange(NRX, device=co.device)[:, None]
+    jj = torch.arange(NRX, device=co.device)[None, :]
+    nre = nrv[..., None, None]
+    valid = (ii < nre) & (jj < nre)
+    idx = torch.where(valid, co[..., None, None] + ii * nre + jj,
+                      (ii * NRX + jj) % CROSS)
+    return idx, valid
+
+
+class DeviceScheduleError(ValueError):
+    """Pattern unsuited to the device wave schedule (e.g. chain trees from
+    banded matrices). Solver dispatch catches this and falls back to the
+    host engine with a warning."""
+
+
+class DeviceMF:
+    """Multifrontal engine for one sparsity pattern on the backend's
+    device, its S shards stacked on the leading axis."""
+
+    def __init__(self, A_csr: sp.csr_matrix, backend, kind: str = "ldl",
+                 dtype=np.float64, row_partition=None):
+        if kind not in ("chol", "ldl", "lu"):
+            raise ValueError(f"unknown kind {kind!r}")
+        self.kind = kind
+        self.dtype = torch_dtype(dtype)
+        self.backend = backend
+        self.device = backend.device
+        S = backend.nshards
+        self.S = S
+        n = A_csr.shape[0]
+        self.n = n
+
+        perm = amd_order(A_csr.indptr.astype(np.int64),
+                         A_csr.indices.astype(np.int64), n)
+        sym = symbolic.analyze(A_csr, perm)
+        # device-tuned amalgamation for scatter-bound (low arithmetic
+        # intensity, 2D-stencil-class) trees: merge harder, since explicit
+        # zeros cost batched dense flops while scatter elements and wave
+        # levels cost launches. Flop-dominated 3D trees (high flops/lnz)
+        # keep the lean host setting.
+        if sym.lnz and sym.flops / sym.lnz < 3000:
+            sym = symbolic.analyze(A_csr, perm, relax=64, zeros_frac=0.5,
+                                   small=64)
+        self.sym = sym
+        ns = sym.nsuper
+        ptr, rows_of = sym.snode_ptr, sym.snode_rows
+        parent = sym.snode_parent
+
+        owner = proportional_map(sym, S)
+        self.owner = owner
+
+        # -- wave levels ----------------------------------------------------
+        lvl = np.zeros(ns, dtype=np.int64)     # local levels (per shard tree)
+        tlvl = np.zeros(ns, dtype=np.int64)    # top levels
+        for k in range(ns):
+            p = int(parent[k])
+            if p < 0:
+                continue
+            if owner[k] >= 0 and owner[p] == owner[k]:
+                lvl[p] = max(lvl[p], lvl[k] + 1)
+            elif owner[k] < 0 and owner[p] < 0:
+                tlvl[p] = max(tlvl[p], tlvl[k] + 1)
+        nloc_lvl = int(lvl[owner >= 0].max()) + 1 if (owner >= 0).any() else 0
+        ntop_lvl = int(tlvl[owner < 0].max()) + 1 if (owner < 0).any() else 0
+
+        # per (level): fronts per shard (local) / flat list (top)
+        loc_fronts = [[[] for _ in range(S)] for _ in range(nloc_lvl)]
+        top_fronts = [[] for _ in range(ntop_lvl)]
+        slot = {}  # supernode -> ("loc", l, s, b) | ("top", l, b)
+        for k in range(ns):
+            if owner[k] >= 0:
+                l, s = int(lvl[k]), int(owner[k])
+                slot[k] = ("loc", l, s, len(loc_fronts[l][s]))
+                loc_fronts[l][s].append(k)
+            else:
+                l = int(tlvl[k])
+                slot[k] = ("top", l, len(top_fronts[l]))
+                top_fronts[l].append(k)
+
+        nc_of = np.diff(ptr).astype(np.int64)
+        nr_of = np.array([len(r) for r in rows_of], dtype=np.int64)
+
+        def front_slot(k, ids):
+            """Front-local slot of each global permuted id for supernode k."""
+            j0, j1 = int(ptr[k]), int(ptr[k + 1])
+            NCl = self._lvl_geom[k][0]
+            within = (ids >= j0) & (ids < j1)
+            ri = np.searchsorted(rows_of[k], ids)
+            return np.where(within, ids - j0, NCl + ri)
+
+        # level geometry (shared NC/NF per level; identity padding)
+        self.local_levels: list[_Level] = []
+        self.top_levels: list[_Level] = []
+        self._lvl_geom = {}
+        for l in range(nloc_lvl):
+            ks_all = [k for s in range(S) for k in loc_fronts[l][s]]
+            NC = int(nc_of[ks_all].max())
+            NF = NC + int(nr_of[ks_all].max())
+            B = max(max(len(loc_fronts[l][s]) for s in range(S)), 1)
+            m = _Level()
+            m.B, m.NC, m.NF = B, NC, NF
+            self.local_levels.append(m)
+            for k in ks_all:
+                self._lvl_geom[k] = (NC, NF)
+        for l in range(ntop_lvl):
+            ks_all = top_fronts[l]
+            NC = int(nc_of[ks_all].max())
+            NF = NC + int(nr_of[ks_all].max())
+            m = _Level()
+            m.B, m.NC, m.NF = max(len(ks_all), 1), NC, NF
+            self.top_levels.append(m)
+            for k in ks_all:
+                self._lvl_geom[k] = (NC, NF)
+        for m in (*self.local_levels, *self.top_levels):
+            if m.B * m.NF * m.NF >= 2**31 - 1:
+                raise ValueError(
+                    "front batch exceeds int32 index space "
+                    f"(B={m.B}, NF={m.NF})")
+        # deep chain trees (banded matrices) make the wave schedule
+        # sequential: hundreds of levels of one front each run serially —
+        # the host engine is the right tool there
+        if len(self.local_levels) + len(self.top_levels) > 128:
+            raise DeviceScheduleError(
+                f"elimination tree too deep for the device wave schedule "
+                f"({len(self.local_levels)} local + {len(self.top_levels)} "
+                "top levels; banded/chain-structured patterns serialize) — "
+                "use the host engine (method='host')")
+
+        # -- assembly maps: A entries (global CSR order) -> front slots ------
+        # the gathered distributed nzval (concat of contiguous row shards,
+        # indices sorted) IS the global CSR data order, so entry t maps to
+        # permuted (r2, c2) straight from the replicated pattern
+        A_csr = sp.csr_matrix(A_csr)
+        A_csr.sort_indices()
+        rg = np.repeat(np.arange(n, dtype=np.int64), np.diff(A_csr.indptr))
+        cg = A_csr.indices.astype(np.int64)
+        r2 = sym.iperm[rg]
+        c2 = sym.iperm[cg]
+        tpos = np.arange(len(r2), dtype=np.int64)
+        if kind != "lu":
+            keep = r2 >= c2  # lower triangle only (symmetric kinds)
+            r2, c2, tpos = r2[keep], c2[keep], tpos[keep]
+        dest = sym.snode_of[np.minimum(r2, c2)]
+
+        asm = {}  # (kind of level, l, s|None) -> ([srcs], [dsts])
+        order = np.argsort(dest, kind="stable")
+        r2o, c2o, tpo, do = r2[order], c2[order], tpos[order], dest[order]
+        bounds = np.flatnonzero(np.diff(do)) + 1
+        groups = np.split(np.arange(len(do)), bounds)
+        for g in groups:
+            if not len(g):
+                continue
+            k = int(do[g[0]])
+            kindL, *loc = slot[k]
+            NC, NF = self._lvl_geom[k]
+            I = front_slot(k, r2o[g])
+            J = front_slot(k, c2o[g])
+            if kindL == "loc":
+                l, s, b = loc
+                key = ("loc", l, s)
+            else:
+                l, b = loc
+                key = ("top", l, None)
+            flat = (b * NF + I) * NF + J
+            sr, ds = asm.setdefault(key, ([], []))
+            sr.append(tpo[g])
+            ds.append(flat)
+
+        nnzA = len(rg)
+        self.nnzA = nnzA
+        cat = (lambda a: np.concatenate(a) if a else np.zeros(0, np.int64))
+
+        def pack_asm(m, l, is_top):
+            BNN = m.B * m.NF * m.NF
+            if is_top:
+                sr, ds = asm.get(("top", l, None), ([], []))
+                D, Sr = _pad2_sorted([cat(ds)], [cat(sr)], BNN, nnzA)
+                D, Sr = D[0], Sr[0]
+            else:
+                srcs, dsts = [], []
+                for s in range(S):
+                    sr, ds = asm.get(("loc", l, s), ([], []))
+                    srcs.append(cat(sr))
+                    dsts.append(cat(ds))
+                D, Sr = _pad2_sorted(dsts, srcs, BNN, nnzA)
+            m.a_src = self._dev("a_src", Sr, nnzA + 1)
+            m.a_dst = self._dev("a_dst", D, BNN + 1)
+
+        # -- identity padding (diag slots not covered by a real front) -------
+        def pack_diag(m, fronts_by_slot, is_top):
+            def one(frs):
+                ds = []
+                for b in range(m.B):
+                    if b < len(frs):
+                        k = frs[b]
+                        nc_k = int(ptr[k + 1] - ptr[k])
+                        i = np.concatenate([
+                            np.arange(nc_k, m.NC, dtype=np.int64),
+                            np.arange(m.NC + len(rows_of[k]), m.NF,
+                                      dtype=np.int64)])
+                    else:
+                        i = np.arange(m.NF, dtype=np.int64)
+                    ds.append(b * m.NF * m.NF + i * (m.NF + 1))
+                return cat(ds)
+            BNN = m.B * m.NF * m.NF
+            if is_top:
+                D = _pad_sentinel([one(fronts_by_slot)], BNN)[0]
+            else:
+                D = _pad_sentinel([one(fronts_by_slot[s]) for s in range(S)],
+                                  BNN)
+            m.diag = self._dev("diag", D, BNN + 1)
+
+        # -- extend-add maps --------------------------------------------------
+        # COMPACT representation: the per-child nr x nr scatter indices are
+        # never materialized (O(sum nr^2) memory would sink 3D problems);
+        # only each child's parent-slot vector psl (O(sum nr)) plus batch
+        # slots are kept, and the factor computes
+        # dst[b, i, j] = (b_parent*NF + psl[i])*NF + psl[j] on the device.
+        # cross buffer: local subtree roots with a top parent
+        croff = {}
+        off = 0
+        for k in range(ns):
+            if owner[k] >= 0 and int(parent[k]) >= 0 \
+                    and owner[int(parent[k])] < 0:
+                croff[k] = off
+                off += int(nr_of[k]) ** 2
+        self.CROSS = max(off, 1)
+
+        ea_loc = {}    # (lp, lc) -> per shard [(bc, bp, psl)]
+        ea_top = {}    # (lp, lc) -> [(bc, bp, psl)]
+        cross_out = {}  # lc -> per shard [(bc, croff, nr)]
+        cross_in = {}   # lp -> [(croff, nr, bp, psl)]
+        for k in range(ns):
+            p = int(parent[k])
+            if p < 0 or int(nr_of[k]) == 0:
+                continue
+            pslot = front_slot(p, rows_of[k]).astype(np.int64)
+            pk, *ploc = slot[p]
+            kk, *kloc = slot[k]
+            nr = int(nr_of[k])
+            if kk == "loc" and pk == "loc":
+                lp, sp_, bp = ploc
+                lc, sc, bc = kloc
+                ea_loc.setdefault((lp, lc), [[] for _ in range(S)])[sp_]\
+                    .append((bc, bp, pslot))
+            elif kk == "loc" and pk == "top":
+                lc, sc, bc = kloc
+                lp, bp = ploc
+                cross_out.setdefault(lc, [[] for _ in range(S)])[sc]\
+                    .append((bc, croff[k], nr))
+                cross_in.setdefault(lp, []).append((croff[k], nr, bp, pslot))
+            else:  # top -> top
+                lp, bp = ploc
+                lc, bc = kloc
+                ea_top.setdefault((lp, lc), []).append((bc, bp, pslot))
+
+        def _pack_group(entries, NR):
+            """[(bc, bp, psl)] -> (srcb (C,), dstb (C,), psl (C, NR))."""
+            C = max(len(entries), 1)
+            srcb = np.zeros(C, dtype=np.int64)
+            dstb = np.zeros(C, dtype=np.int64)
+            psl = np.full((C, NR), -1, dtype=np.int64)
+            for i, (bc, bp, ps) in enumerate(entries):
+                srcb[i] = bc
+                dstb[i] = bp
+                psl[i, : len(ps)] = ps
+            return srcb, dstb, psl
+
+        def _pack_group_sharded(per_shard, NR):
+            packed = [_pack_group(per_shard[s], NR) for s in range(S)]
+            C = max(p0[0].shape[0] for p0 in packed)
+            srcb = np.zeros((S, C), dtype=np.int64)
+            dstb = np.zeros((S, C), dtype=np.int64)
+            psl = np.full((S, C, NR), -1, dtype=np.int64)
+            for s, (sb, db, ps) in enumerate(packed):
+                srcb[s, : sb.shape[0]] = sb
+                dstb[s, : db.shape[0]] = db
+                psl[s, : ps.shape[0]] = ps
+            return srcb, dstb, psl
+
+        def ea_tables(m, mc, srcb, dstb, psl):
+            return (self._dev("ea srcb", srcb, mc.B),
+                    self._dev("ea dstb", dstb, m.B),
+                    self._dev("ea psl", psl, m.NF, dead_below_zero=True))
+
+        # -- row-distributed solve-phase spaces -------------------------------
+        # Per-shard COMPACT column space instead of O(n) full-length solve
+        # buffers: shard s's space is the union of its supernodes' column
+        # ranges ([0, M_s)) plus a copy of the replicated top set at
+        # [Mmax, Mmax+TOPM). Local fronts only ever touch own columns and
+        # top rows (proportional mapping invariant), so every ccol/crow id
+        # translates into this space: per-shard solve memory is
+        # O(n/S + |top|), the cuDSS row-1d distributed-RHS contract.
+        topset: set = set()
+        for ks in top_fronts:
+            for k2 in ks:
+                topset.update(range(int(ptr[k2]), int(ptr[k2 + 1])))
+                topset.update(int(r) for r in rows_of[k2])
+        topids = np.array(sorted(topset), dtype=np.int64)
+        self.TOPM = TOPM = len(topids)
+        topmap = np.full(n + 1, TOPM, dtype=np.int64)
+        if TOPM:
+            topmap[topids] = np.arange(TOPM)
+        loc_lists = [[] for _ in range(S)]
+        for k2 in range(ns):
+            if owner[k2] >= 0:
+                loc_lists[int(owner[k2])].append(
+                    np.arange(int(ptr[k2]), int(ptr[k2 + 1])))
+        cid = [np.sort(np.concatenate(ll)) if ll else np.zeros(0, np.int64)
+               for ll in loc_lists]
+        self.Ms = np.array([len(c) for c in cid], dtype=np.int64)
+        Mmax = int(self.Ms.max()) if S else 0
+        self.Mmax = Mmax
+
+        self.SVPAD = round_up(max(Mmax + TOPM, 1))   # in-plan out_pad
+        SENT = self.SVPAD                             # sentinel slot (zeroed)
+        # per-shard translation: global permuted id -> compact slot
+        cmap = np.full((S, n + 1), SENT, dtype=np.int64)
+        for s in range(S):
+            cmap[s, cid[s]] = np.arange(len(cid[s]))
+        if TOPM:
+            cmap[:, topids] = Mmax + topmap[topids][None, :]
+        self._cid, self._topids = cid, topids
+
+        # -- solve gather maps (translated into the compact spaces) -----------
+        def pack_cols(m, fronts_by_slot, is_top):
+            def one(frs, s):
+                cc = np.full((m.B, m.NC), n, dtype=np.int64)
+                cr = np.full((m.B, m.NF - m.NC), n, dtype=np.int64)
+                for b, k in enumerate(frs):
+                    j0, j1 = int(ptr[k]), int(ptr[k + 1])
+                    cc[b, : j1 - j0] = np.arange(j0, j1)
+                    cr[b, : len(rows_of[k])] = rows_of[k]
+                if is_top:
+                    return topmap[cc], topmap[cr]   # sentinel -> TOPM
+                return cmap[s, cc], cmap[s, cr]     # sentinel -> SENT
+            if is_top:
+                cc, cr = one(fronts_by_slot, None)
+                hi = TOPM + 1
+                base = np.zeros(1, np.int64)
+            else:
+                ccs, crs = zip(*[one(fronts_by_slot[s], s) for s in range(S)])
+                cc, cr = np.stack(ccs), np.stack(crs)
+                hi = SENT + 1
+                base = np.arange(S, dtype=np.int64)[:, None, None] * hi
+            m.ccol = self._dev("ccol", cc, hi)
+            m.crow = self._dev("crow", cr, hi)
+            # the scatter-add of the updates: one sentinel slot for all the
+            # padding would serialize the adds on it (sorted or atomic), so
+            # the padding adds masked zeros at spread real slots
+            live = cr != hi - 1
+            spread = np.arange(cr.size, dtype=np.int64).reshape(cr.shape) \
+                % (hi - 1)
+            m.crow_add = self._dev("crow_add", (base + np.where(
+                live, cr, spread)).reshape(-1), base.size * hi)
+            m.crow_live = self.backend.tensor(live[..., None])
+
+        # -- finalize static tables -------------------------------------------
+        for l, m in enumerate(self.local_levels):
+            pack_asm(m, l, False)
+            pack_diag(m, loc_fronts[l], False)
+            pack_cols(m, loc_fronts[l], False)
+            for (lp, lc), per_shard in sorted(x for x in ea_loc.items()
+                                              if x[0][0] == l):
+                mc = self.local_levels[lc]
+                m.ea.append((lc,) + ea_tables(
+                    m, mc, *_pack_group_sharded(per_shard, mc.NF - mc.NC)))
+        for l, m in enumerate(self.top_levels):
+            pack_asm(m, l, True)
+            pack_diag(m, top_fronts[l], True)
+            pack_cols(m, top_fronts[l], True)
+            for (lp, lc), entries in sorted(x for x in ea_top.items()
+                                            if x[0][0] == l):
+                mc = self.top_levels[lc]
+                m.ea.append((lc,) + ea_tables(
+                    m, mc, *_pack_group(entries, mc.NF - mc.NC)))
+            if l in cross_in:
+                entries = cross_in[l]
+                NRX = max(len(e[3]) for e in entries)
+                C = len(entries)
+                co = np.zeros(C, dtype=np.int64)
+                nrv = np.zeros(C, dtype=np.int64)
+                dstb = np.zeros(C, dtype=np.int64)
+                psl = np.full((C, NRX), -1, dtype=np.int64)
+                for i, (o, nr, bp, ps) in enumerate(entries):
+                    co[i], nrv[i], dstb[i] = o, nr, bp
+                    psl[i, : len(ps)] = ps
+                self._check_cross(co, nrv)
+                m.ea_cross.append((self._dev("cross co", co, self.CROSS),
+                                   self._dev("cross nr", nrv, NRX + 1),
+                                   self._dev("cross dstb", dstb, m.B),
+                                   self._dev("cross psl", psl, m.NF,
+                                             dead_below_zero=True), NRX))
+
+        # cross scatter (per child level): update buffer -> (S, CROSS)
+        self.cross_maps = []
+        for lc, per_shard in sorted(cross_out.items()):
+            C = max(max(len(per_shard[s]) for s in range(S)), 1)
+            srcb = np.zeros((S, C), dtype=np.int64)
+            co = np.full((S, C), self.CROSS, dtype=np.int64)  # padding: nr 0
+            nrv = np.zeros((S, C), dtype=np.int64)
+            for s in range(S):
+                for i, (bc, o, nr) in enumerate(per_shard[s]):
+                    srcb[s, i], co[s, i], nrv[s, i] = bc, o, nr
+            self._check_cross(co, nrv)
+            mc = self.local_levels[lc]
+            self.cross_maps.append((lc, self._dev("cross srcb", srcb, mc.B),
+                                    self._dev("cross co", co, self.CROSS + 1),
+                                    self._dev("cross nr", nrv,
+                                              mc.NF - mc.NC + 1)))
+
+        # top column ids in the top-compact space (device)
+        topcols = np.concatenate(
+            [np.arange(int(ptr[k]), int(ptr[k + 1])) for k in range(ns)
+             if owner[k] < 0]) if (owner < 0).any() else np.zeros(0, np.int64)
+        self.n_topcols = len(topcols)
+        self.topcols = self._dev("topcols", topmap[topcols], TOPM + 1)
+
+        # -- RHS in-gather / solution out-scatter plans (natural order <->
+        # compact solve spaces; the fill-reducing permutation is folded in)
+        from ..parallel.exchange import ExchangePlan
+        from ..partition import global_to_local, padded_size, uniform_partition
+        from ..ops.gather import gather_exchange_plan
+
+        rp = row_partition
+        # the row partition comes from the wrapping DistSparseMatrix;
+        # DeviceMF itself is partition-agnostic: default to the uniform split
+        if rp is None:
+            rp = uniform_partition(n, S)
+        self.row_partition = rp
+        perm = sym.perm
+        wanted = []
+        for s in range(S):
+            w = perm[cid[s]]
+            if s == 0 and TOPM:
+                filler = np.zeros(Mmax - len(w), dtype=np.int64)
+                w = np.concatenate([w, filler, perm[topids]])
+            wanted.append(w)
+        self.in_plan = gather_exchange_plan(backend, rp, wanted,
+                                            out_len=Mmax + TOPM)
+        if self.in_plan.out_pad != self.SVPAD:
+            raise AssertionError("in_plan pad differs from the solve space")
+        send = [[np.zeros(0, np.int64) for _ in range(S)] for _ in range(S)]
+        recv = [[np.zeros(0, np.int64) for _ in range(S)] for _ in range(S)]
+        for s in range(S):
+            nats = perm[cid[s]]
+            owners_o, locs = global_to_local(rp, nats)
+            slots = np.arange(len(nats), dtype=np.int64)
+            for d in range(S):
+                mm = owners_o == d
+                if mm.any():
+                    send[s][d] = slots[mm]
+                    recv[d][s] = locs[mm]
+        if TOPM:
+            # top columns: every shard holds the replicated copy — the
+            # natural-row owner reads its OWN copy (pure self-traffic)
+            tnat = perm[topids]
+            towners, tlocs = global_to_local(rp, tnat)
+            for d in range(S):
+                mm = towners == d
+                if mm.any():
+                    send[d][d] = np.concatenate(
+                        [send[d][d], Mmax + np.flatnonzero(mm)])
+                    recv[d][d] = np.concatenate([recv[d][d], tlocs[mm]])
+        self.out_plan = ExchangePlan(backend, send, recv, padded_size(rp))
+        self._prep_cache = None
+
+    # ------------------------------------------------------------------
+    def _dev(self, name, arr, hi, dead_below_zero=False) -> torch.Tensor:
+        """A static index table on the device, after checking on the host
+        that every entry lies in [0, hi) (or is a dead -1 slot where the
+        table allows one): a device-side out-of-range index would kill the
+        CUDA context."""
+        check_index(f"device_mf {name}", arr, hi,
+                    dead_below_zero=dead_below_zero)
+        return self.backend.tensor(np.asarray(arr, np.int64))
+
+    def _check_cross(self, co, nrv):
+        """Every child's nr x nr block ends inside the cross buffer (the
+        padding children, nr = 0, sit at offset CROSS)."""
+        if (co + nrv * nrv > self.CROSS).any():
+            raise IndexError("device_mf cross map: a block runs past the "
+                             f"cross buffer ({self.CROSS})")
+
+    # ------------------------------------------------------------------
+    # numeric factorization, level by level
+    # ------------------------------------------------------------------
+    def _local_level_body(self, m, Av, upds, eps):
+        """Assemble + extend-add + factor ONE local level batch. Returns
+        (fac tuple (S, B, ...), U (S, B, NR, NR), n_perturbed, failed)."""
+        S = self.S
+        B, NC, NF = m.B, m.NC, m.NF
+        BNN = B * NF * NF
+        ar = torch.arange(S, device=self.device)[:, None]
+        # shard s's fronts and its sentinel slot: [s*(BNN+1), (s+1)*(BNN+1))
+        off = ar * (BNN + 1)
+        F = torch.zeros((S, BNN + 1), dtype=self.dtype, device=self.device)
+        Ff = F.view(-1)
+        Ff.index_add_(0, (m.a_dst + off).view(-1), Av[m.a_src].view(-1))
+        Ff.index_fill_(0, (m.diag + off).view(-1), 1.0)
+        for lc, srcb, dstb, psl in m.ea:
+            dst, u = _ea_scatter(dstb, psl, NF, upds[lc][ar, srcb])
+            Ff.index_add_(0, (dst.view(S, -1) + off).view(-1), u.view(-1))
+        # drop the sentinel column: a view, no copy
+        F4 = F[:, :BNN].view(S, B, NF, NF)
+        return _front_kernel(self.kind, F4, NC, eps)
+
+    def _cross_body(self, upds):
+        """Local subtree roots' updates -> replicated cross contributions
+        (one sum over the shard axis)."""
+        S = self.S
+        cross = torch.zeros((S, self.CROSS), dtype=self.dtype,
+                            device=self.device)
+        ar = torch.arange(S, device=self.device)[:, None]
+        off = ar * self.CROSS
+        for lc, srcb, co, nrv in self.cross_maps:
+            U = upds[lc]
+            idx, valid = _cross_slots(co, nrv, U.shape[-1], self.CROSS)
+            u = torch.where(valid, U[ar, srcb], 0)      # (S, C, NR, NR)
+            cross.view(-1).index_add_(0, (idx.view(S, -1) + off).view(-1),
+                                      u.view(-1))
+        return cross.sum(dim=0)
+
+    def _top_body(self, Av, crossp, eps):
+        """Replicated top-tree factorization (small dense levels)."""
+        npert = torch.zeros((), dtype=torch.int64, device=self.device)
+        failed = torch.zeros_like(npert)
+        tupds = []
+        top_factors = []
+        for m in self.top_levels:
+            B, NC, NF = m.B, m.NC, m.NF
+            BNN = B * NF * NF
+            F = torch.zeros(BNN + 1, dtype=self.dtype, device=self.device)
+            F.index_add_(0, m.a_dst, Av[m.a_src])
+            F.index_fill_(0, m.diag, 1.0)
+            for lc, srcb, dstb, psl in m.ea:
+                dst, u = _ea_scatter(dstb, psl, NF, tupds[lc][srcb])
+                F.index_add_(0, dst.view(-1), u.view(-1))
+            for co, nrv, dstb, psl, NRX in m.ea_cross:
+                idx, valid = _cross_slots(co, nrv, NRX, self.CROSS)
+                vals_c = torch.where(valid, crossp[idx], 0)  # (C, NRX, NRX)
+                dst, u = _ea_scatter(dstb, psl, NF, vals_c)
+                F.index_add_(0, dst.view(-1), u.view(-1))
+            fac, U, p, f = _front_kernel(self.kind, F[:BNN].view(B, NF, NF),
+                                         NC, eps)
+            npert = npert + p
+            failed = failed + f
+            tupds.append(U)
+            top_factors.append(fac)
+        return top_factors, npert, failed
+
+    def factor(self, Avals, eps):
+        """Avals: (nnzA,) values in global CSR order on the device.
+        Returns (local factors, top factors, n_perturbed, failed), the last
+        two 0-d device tensors."""
+        # new factors invalidate the prepped (inverted-block) solve cache;
+        # clearing it first also releases the old factor tensors before
+        # the new ones allocate
+        self._prep_cache = None
+        dt = self.dtype
+        Av = torch.cat([Avals.to(dt), Avals.new_zeros(1, dtype=dt)])
+        eps = float(eps)
+        upds = []          # per local level: (S, B, NR, NR)
+        loc_factors = []
+        npert = torch.zeros((), dtype=torch.int64, device=self.device)
+        failed = torch.zeros_like(npert)
+        for m in self.local_levels:
+            fac, U, p, f = self._local_level_body(m, Av, upds, eps)
+            npert = npert + p
+            failed = failed + f
+            upds.append(U)
+            loc_factors.append(fac)
+        crossp = self._cross_body(upds)
+        del upds
+        top_factors, ptop, ftop = self._top_body(Av, crossp, eps)
+        return loc_factors, top_factors, npert + ptop, failed + ftop
+
+    # ------------------------------------------------------------------
+    # solve: wave sweeps on INVERTED diagonal blocks (prep_solve), so that
+    # every per-level triangular solve is one batched matmul with the
+    # precomputed L11^-1 / U11^-1. Inversion happens ONCE per
+    # factorization; the flop count of (inv @ rhs) equals substitution.
+    # ------------------------------------------------------------------
+    def prep_solve(self, factors):
+        """(loc, top, npert) -> solve-ready factors with diagonal blocks
+        inverted; cached per factors identity."""
+        hit = self._prep_cache
+        if hit is not None and hit[0] is factors:
+            return hit[1]
+        out = (([self._inv_fac(f) for f in factors[0]],
+                [self._inv_fac(f) for f in factors[1]]), factors[2])
+        self._prep_cache = (factors, out)
+        return out
+
+    def _inv_fac(self, fac):
+        """Replace the triangular diagonal blocks of one level's factor
+        tuple with their inverses (unit-ness folded in)."""
+        L11 = fac[0]
+        nc = L11.shape[-1]
+        eye = torch.eye(nc, dtype=L11.dtype, device=L11.device) \
+            .expand(L11.shape)
+        unit = self.kind != "chol"
+        Li = torch.linalg.solve_triangular(L11, eye, upper=False,
+                                           unitriangular=unit)
+        if self.kind != "lu":
+            return (Li,) + tuple(fac[1:])
+        Ui = torch.linalg.solve_triangular(fac[1], eye, upper=True)
+        return (Li, Ui) + tuple(fac[2:])
+
+    def _fwd(self, fac, seg, tr=False):
+        """seg (..., NC, k) -> (z stored for backward, w for updates); fac
+        carries INVERTED diagonal blocks. ``tr`` solves the transposed
+        system (LU only: Aᵀ = Uᵀ Lᵀ, forward uses Uᵀ)."""
+        if self.kind == "ldl":
+            w = fac[0] @ seg
+            return w / fac[1][..., :, None], w
+        if self.kind == "lu" and tr:  # Uᵀ z = b -> z = (U^-1)ᵀ b
+            w = fac[1].mT @ seg
+            return w, w
+        w = fac[0] @ seg
+        return w, w
+
+    def _bwd(self, fac, rhs, xr, tr=False):
+        """rhs is the stored z segment; xr (..., NR, k) the ancestor
+        solution rows. ``tr`` (LU only): backward with Lᵀ (unit)."""
+        if self.kind == "lu" and not tr:
+            _Li, Ui, _L21, U12 = fac
+            return Ui @ (rhs - U12 @ xr)
+        # Lᵀ x = z - L21ᵀ xr with L^-1 stored: chol, ldl and LU transposed
+        L21 = fac[2] if self.kind == "lu" else fac[-1]
+        return fac[0].mT @ (rhs - L21.mT @ xr)
+
+    def _l21(self, fac, tr=False):
+        if self.kind != "lu":
+            return fac[-1]
+        if tr:  # Uᵀ off-block: U12ᵀ (NR, NC)
+            return fac[3].mT
+        return fac[2]
+
+    def _solve_impl(self, loc_factors, top_factors, bloc, tr=False):
+        # bloc: (S, SVPAD, k) — the in_plan gather of the row-distributed
+        # RHS into the per-shard compact spaces (local columns at [0, M_s),
+        # the replicated top copy at [Mmax, Mmax+TOPM) on shard 0 only).
+        dt = self.dtype
+        S = self.S
+        SENT = self.SVPAD          # sentinel slot, kept zero
+        TOPM, Mmax = self.TOPM, self.Mmax
+        k = bloc.shape[2]
+        y = torch.cat([bloc.to(dt), bloc.new_zeros((S, 1, k), dtype=dt)], 1)
+        contrib = torch.zeros_like(y)
+        zloc = torch.zeros_like(y)
+        ar = torch.arange(S, device=self.device)[:, None, None]
+
+        # forward, local phase (compact per-shard spaces)
+        for m, fac in zip(self.local_levels, loc_factors):
+            ccol = m.ccol
+            seg = y[ar, ccol] + contrib[ar, ccol]      # (S, B, NC, k)
+            z, w = self._fwd(fac, seg, tr)
+            zloc[ar, ccol] = z
+            upd = self._l21(fac, tr) @ w
+            contrib.view(-1, k).index_add_(0, m.crow_add, torch.where(
+                m.crow_live, -upd, 0).view(-1, k))
+            zloc[:, SENT] = 0
+
+        # forward, top phase: ONE cross-shard reduction of the compact top
+        # region (b_top rides shard 0's slice; others carry only updates)
+        ytop = torch.zeros((TOPM + 1, k), dtype=dt, device=self.device)
+        if TOPM:
+            ytop[:TOPM] = (y + contrib)[:, Mmax: Mmax + TOPM].sum(dim=0)
+        for m, fac in zip(self.top_levels, top_factors):
+            z, w = self._fwd(fac, ytop[m.ccol], tr)
+            ytop[m.ccol] = z
+            upd = self._l21(fac, tr) @ w
+            ytop.index_add_(0, m.crow_add, torch.where(
+                m.crow_live, -upd, 0).view(-1, k))
+            ytop[TOPM] = 0
+
+        # backward, top phase (replicated compute on the compact top space)
+        for m, fac in zip(reversed(self.top_levels), reversed(top_factors)):
+            x = self._bwd(fac, ytop[m.ccol], ytop[m.crow], tr)
+            ytop[m.ccol] = x
+            ytop[TOPM] = 0
+        xtop = torch.zeros_like(ytop)
+        if self.n_topcols:
+            tc = self.topcols
+            xtop[tc] = ytop[tc]
+
+        # backward, local phase: every shard carries the top solution copy
+        # in its [Mmax, Mmax+TOPM) region
+        xloc = torch.zeros_like(y)
+        if TOPM:
+            xloc[:, Mmax: Mmax + TOPM] = xtop[:TOPM]
+        for m, fac in zip(reversed(self.local_levels), reversed(loc_factors)):
+            x = self._bwd(fac, zloc[ar, m.ccol], xloc[ar, m.crow], tr)
+            xloc[ar, m.ccol] = x
+            xloc[:, SENT] = 0
+
+        return xloc  # (S, SENT+1, k); out_plan scatters to natural order
+
+    def solve_dist(self, factors, bstacked, transpose: bool = False):
+        """Row-distributed solve: bstacked (S, Lrow[, k]) on
+        ``self.row_partition`` -> solution stacked the same way. in_plan
+        gathers the RHS into the per-shard compact spaces, the wave solve
+        runs on O(n/S + |top|) buffers, out_plan scatters the solution back
+        to natural row order."""
+        (loc, top), _ = self.prep_solve(factors)
+        b = bstacked
+        squeeze = b.dim() == 2
+        if squeeze:
+            b = b[:, :, None]
+        bloc = self.in_plan.apply(b.to(self.dtype))
+        # chol/ldl are symmetric: transpose == plain solve
+        tr = bool(transpose) and self.kind == "lu"
+        xloc = self._solve_impl(loc, top, bloc, tr)
+        x = self.out_plan.apply(xloc)
+        return x[:, :, 0] if squeeze else x
+
+    def solve(self, factors, b, transpose: bool = False):
+        """Replicated-RHS convenience wrapper: (n[, k]) in, (n[, k]) out
+        (scatter -> distributed solve -> gather)."""
+        from ..parallel.mesh import allgather_full, scatter_from_full
+
+        squeeze = b.dim() == 1
+        if squeeze:
+            b = b[:, None]
+        bs = scatter_from_full(b, self.row_partition, self.backend)
+        xs = self.solve_dist(factors, bs, transpose=transpose)
+        x = allgather_full(xs, self.row_partition, self.backend)
+        return x[:, 0] if squeeze else x
+
+
+def device_engine(A, kind: str, dtype) -> DeviceMF:
+    """The DeviceMF plan of A's pattern for ``kind`` in ``dtype``, built
+    once per (pattern, kind, dtype, backend) and cached."""
+    from ..cache import cached_plan
+
+    def build():
+        # pattern-only host CSR: the symbolic/plan phase never reads values
+        return DeviceMF(A.pattern_csr(), A.backend, kind=kind, dtype=dtype,
+                        row_partition=A.row_partition)
+
+    return cached_plan("device_mf", (A.hash, kind, str(np.dtype(dtype)),
+                                     A.backend.key), build)
+
+
+def _factor_leaves(loc, top):
+    return [x for fac in (*loc, *top) for x in fac if x.numel()]
+
+
+class DeviceFactorization:
+    """Factorization interface over the DeviceMF engine (ref:
+    MUMPSFactorization / CuDSSFactorizationMPI). The RHS and solution stay
+    on the device end to end: gather in, wave solves, scatter out."""
+
+    def __init__(self, A, kind: str = "ldl", dtype=None):
+        self.A = A
+        self.backend = A.backend
+        self.structural_hash = A.hash
+        if A.dtype.is_complex and kind == "chol":
+            raise ValueError("device Cholesky is real-SPD only; use "
+                             "kind='ldl' for complex-symmetric systems")
+        # the engine runs in the matrix's own dtype: the card has native
+        # f64 and complex arithmetic
+        self.dtype = numpy_dtype(A.dtype if dtype is None else dtype)
+        self.kind = kind
+        self.engine = device_engine(A, kind, self.dtype)
+        self._numeric(A)
+
+    def _numeric(self, A):
+        from ..parallel.mesh import allgather_full
+
+        st = A.structure
+        nnzb = np.concatenate([[0], np.cumsum(st.nnz_local)]).astype(np.int64)
+        Avals = allgather_full(A.nzval, nnzb, self.backend)  # (nnzA,) device
+        anorm = float(torch.abs(A.nzval).max()) if A.nzval.numel() else 0.0
+        eps = _PERT_REL * (anorm if anorm > 0 else 1.0)  # relative, no floor
+        # drop the previous factors BEFORE factoring: old + new + temps
+        # together may not fit the device
+        self.factors = None
+        self._A64 = None
+        loc, top, npert, failed = self.engine.factor(Avals, eps)
+        self.factors = (loc, top, npert)
+        # growth monitor: the device engine has no numerical pivoting, so a
+        # legal-but-tiny pivot shows up as large |L| growth; flag it and
+        # escalate the solve to the full-budget extended refinement (the
+        # eps clamp alone only catches |pivot| < eps). One host read for
+        # the perturbation count, the failure count and the growth.
+        leaves = _factor_leaves(loc, top)
+        amax = torch.stack([torch.abs(x).amax().to(torch.float64)
+                            for x in leaves]).amax() if leaves \
+            else npert.new_zeros((), dtype=torch.float64)
+        np_, nfail, g = torch.stack(
+            [npert.to(torch.float64), failed.to(torch.float64), amax]).tolist()
+        self.n_perturbed = int(np_)
+        # the reference reads the growth in f32
+        self.growth = float(np.float32(g))
+        self._unstable = (self.n_perturbed > 0
+                          or self.growth > _GROWTH_MAX_DEV)
+        if self.kind == "chol" and (nfail > 0 or not np.isfinite(g)):
+            raise ValueError("device Cholesky requires an SPD matrix "
+                             "(use kind='ldl' for indefinite systems)")
+
+    def refactorize(self, A) -> "DeviceFactorization":
+        if A.hash != self.structural_hash:
+            raise ValueError("refactorize requires the same sparsity pattern")
+        self.A = A
+        self._numeric(A)
+        return self
+
+    def _default_refine(self) -> int:
+        """Sweep CAP, not a fixed count: the loop exits as soon as the
+        residual reaches dtype noise."""
+        return 1 if self.n_perturbed == 0 else 2
+
+    @staticmethod
+    def _part_of(o):
+        """Row partition of a DistVector (.partition) or matrix."""
+        p = getattr(o, "partition", None)
+        return p if p is not None else o.row_partition
+
+    def _refined_solve(self, Bd, transpose, refine, to_dist, extended=None):
+        """Solve + capped early-stopping iterative refinement with device
+        residuals through the distributed SpMV/SpMM: compensates
+        static-pivot perturbations. Stops when the relative residual
+        reaches dtype noise or stagnates. ``extended`` (default: on for an
+        f32 engine) carries the solution in f64 with f64 residuals
+        (_extended_refine)."""
+        if self._unstable and extended is not False:
+            # growth-flagged factorization: spend the full extended budget
+            # — refinement is what recovers the lost accuracy
+            extended = True
+        explicit_ext = extended is True
+        if extended is None:
+            extended = self.engine.dtype == torch.float32
+        # the RHS stays row-distributed end to end: align it to the
+        # engine's partition once
+        part = self.engine.row_partition
+        if not np.array_equal(self._part_of(Bd), part):
+            Bd = Bd.repartition(part)
+        Xs = self.engine.solve_dist(self.factors, Bd.data,
+                                    transpose=transpose)
+        Xd = to_dist(Xs)
+        if not refine:
+            return Xd
+        if extended:
+            ext = self._extended_refine(Bd, Xs, transpose, refine,
+                                        full_budget=explicit_ext)
+            if ext is not None:
+                return ext
+        Aop = self.A.T if transpose else self.A
+        rtol = 50 * torch.finfo(self.engine.dtype).eps
+        bn = float(Bd.norm())
+        prev = np.inf
+        for _ in range(refine):
+            R = Bd - Aop @ Xd
+            rn = float(R.norm())
+            if bn > 0 and (rn <= rtol * bn or rn >= 0.8 * prev):
+                break
+            prev = rn
+            if not np.array_equal(self._part_of(R), part):
+                R = R.repartition(part)
+            Xs = Xs + self.engine.solve_dist(self.factors, R.data,
+                                             transpose=transpose)
+            Xd = to_dist(Xs)
+        return Xd
+
+    # extended refinement: stop once the f64 relative residual reaches
+    # 5e-10, or after a sweep that shrinks it by less than 10 %. The
+    # full-budget cap binds only on a growth-flagged factorization.
+    _EXT_RTOL = 5e-10
+    _EXT_MAX_SWEEPS = 24
+
+    def _extended_refine(self, Bd, Xs, transpose, refine,
+                         full_budget: bool = False):
+        """Iterative refinement of an f32 factorization to an f64-class
+        relative residual (about 1e-9): the solution is carried in f64 and
+        the residual runs through the same SpMV plan on an f64 copy of A.
+        Returns the f64 DistVector, or None for a matrix RHS or another
+        engine dtype (the caller then runs the plain loop)."""
+        from ..vector import DistVector
+
+        if self.engine.dtype != torch.float32 or not isinstance(Bd, DistVector):
+            return None
+        if self._A64 is None:
+            self._A64 = self.A.with_values(self.A.nzval.to(torch.float64))
+        Aop = self._A64.T if transpose else self._A64
+        part = self.engine.row_partition
+        b64 = DistVector(Bd.data.to(torch.float64), part, self.backend)
+        x64 = Xs.to(torch.float64)
+        bn = float(b64.norm())
+        prev = np.inf
+        cap = max(refine, self._EXT_MAX_SWEEPS) if full_budget \
+            else refine + 3
+        for _ in range(cap):
+            r = b64 - Aop @ DistVector(x64, part, self.backend)
+            rn = float(r.norm())
+            if bn > 0 and (rn <= self._EXT_RTOL * bn or rn >= 0.9 * prev):
+                break
+            prev = rn
+            if not np.array_equal(r.partition, part):
+                r = r.repartition(part)
+            x64 = x64 + self.engine.solve_dist(
+                self.factors, r.data.to(torch.float32),
+                transpose=transpose).to(torch.float64)
+        return DistVector(x64, part, self.backend)
+
+    def solve(self, b, transpose: bool = False, refine: int | None = None,
+              extended: bool | None = None):
+        """Solve A x = b (or Aᵀ x = b). ``b``: DistVector (the solution is
+        a DistVector in b's dtype on A's row partition) or host array (the
+        solution is a host array; f64 after an extended refinement)."""
+        from ..parallel.mesh import scatter_from_full
+        from ..vector import DistVector
+
+        if self.factors is None:
+            raise RuntimeError("factorization was finalized")
+        if refine is None:
+            refine = self._default_refine()
+        is_dist = isinstance(b, DistVector)
+        part = self.A.row_partition
+        if not is_dist:
+            # host-array RHS refines through the same distributed path
+            b = DistVector(scatter_from_full(
+                self.backend.tensor(np.asarray(b)), part, self.backend),
+                part, self.backend)
+
+        def to_dist(xs):
+            # xs arrives stacked/row-distributed from solve_dist
+            return DistVector(xs.to(b.dtype), part, self.backend)
+
+        xd = self._refined_solve(b, transpose, refine, to_dist,
+                                 extended=extended)
+        if not is_dist:
+            return xd.to_numpy()
+        return xd if xd.dtype == b.dtype else to_dist(xd.data)
+
+    def solve_matrix(self, B, transpose: bool = False,
+                     refine: int | None = None,
+                     extended: bool | None = None):
+        """Multi-RHS device solve: one batched wave sweep for all columns
+        (ref: MUMPS multi-RHS, mumps_factorization.jl:291-353), with the
+        same capped early-stopping refinement as the vector path (the
+        residual is one distributed SpMM per sweep)."""
+        from ..dense import DistDenseMatrix
+        from ..parallel.mesh import scatter_from_full
+
+        if self.factors is None:
+            raise RuntimeError("factorization was finalized")
+        if refine is None:
+            refine = self._default_refine()
+        is_dist = isinstance(B, DistDenseMatrix)
+        part = self.A.row_partition
+        if not is_dist:
+            Bg = self.backend.tensor(np.asarray(B))
+            B = DistDenseMatrix(scatter_from_full(Bg, part, self.backend),
+                                part, Bg.shape[1], self.backend)
+        k = B.ncols
+
+        def to_dist(Xs):
+            return DistDenseMatrix(Xs.to(B.dtype), part, k, self.backend)
+
+        Xd = self._refined_solve(B, transpose, refine, to_dist,
+                                 extended=extended)
+        return Xd if is_dist else Xd.to_numpy()
+
+    def finalize(self):
+        self.factors = None
+        self._A64 = None
+        self.engine._prep_cache = None

@@ -5,9 +5,13 @@ constructors take the JAX containers' state as numpy arrays (the caller
 does ``np.asarray(...)`` on the JAX side) and build the port's containers
 from it without recomputing anything: the stacked data, partitions and
 compressed-column structure are taken as they are. No JAX import is needed.
+The solver selection of the JAX container's backend (``solver=``) carries
+over too, so both sides route ``lu``/``ldlt``/``solve`` to the same engine.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 
@@ -46,9 +50,14 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
     ``row_partition`` and optionally ``col_partition``, or a
     DistSparseMatrix from ``nzval`` (S, NNZpad) and the SparseStructure
     arrays (per-shard ``indptr``, ``colval``, ``col_indices``, the two
-    partitions and ``ncols``)."""
+    partitions and ``ncols``). A container carried over from ``ref`` lives
+    on ``backend`` with the solver of ``ref``'s backend ("multifrontal" or
+    "device")."""
     if ref is not None:
-        return from_reference(backend, **_reference_state(ref))
+        solver = getattr(getattr(ref, "backend", None), "solver",
+                         backend.solver)
+        return from_reference(replace(backend, solver=solver),
+                              **_reference_state(ref))
     if data is not None and np.ndim(data) == 3:
         if row_partition is None:
             raise ValueError("a dense matrix needs its row partition")

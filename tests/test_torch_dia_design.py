@@ -197,3 +197,34 @@ def test_dia_vector_width_rule():
     assert k1.dia_vector_width(_unaligned(d), g, y) == 1              # dval
     assert k1.dia_vector_width(d, torch.zeros(2 * 300 + 4)[4:].view(2, 300),
                                y) == 4                                # 16 off
+
+
+@pytest.mark.parametrize("which", ["both", "values", "x"])
+def test_complex_products_match_complex_dia(which):
+    """On the card K1 takes complex operands as real products of their
+    parts (``complex_products``): the same split over the plain version
+    gives the complex plain product and the JAX package's ``_dia_exec`` on
+    the complex operands, to f64 rounding."""
+    dval, g, offsets, bias_lo, bias_hi, pad_to = _direct_args(
+        2, 3000, 3200, (-37, -5, 0, 3, 11, 50), 37, 100, 2950, torch.float64)
+    rng = np.random.default_rng(4)
+    if which in ("both", "values"):
+        dval = dval + 1j * torch.from_numpy(rng.standard_normal(dval.shape))
+    if which in ("both", "x"):
+        g = g + 1j * torch.from_numpy(rng.standard_normal(g.shape))
+    calls = []
+
+    def plain(v, x):
+        assert not v.is_complex() and not x.is_complex()
+        calls.append(1)
+        return k1.dia_spmv_plain(v, x, offsets, bias_lo, bias_hi, pad_to)
+
+    got = k1.complex_products(plain, dval, g)
+    assert len(calls) == (4 if which == "both" else 2)
+    want = k1.dia_spmv_plain(dval, g, offsets, bias_lo, bias_hi, pad_to)
+    assert got.dtype == want.dtype == torch.complex128
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-14 * scale)
+    _eager, jitted = _jax_dia((dval, g, offsets, bias_lo, bias_hi, pad_to))
+    np.testing.assert_allclose(got.numpy(), jitted, rtol=0,
+                               atol=1e-14 * scale)

@@ -129,13 +129,8 @@ def test_backslash_cache_hit(S):
     ht.clear_plan_cache("backslash")
 
 
-def test_device_method_raises():
+def test_ldlt_requires_square():
     be = ht.backend_auto(2, device="cpu")
-    At = ht.DistSparseMatrix.from_scipy(laplace2d(6), be)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ht.ldlt(At, method="device")
-    with pytest.raises(NotImplementedError):
-        ht.lu(At, method="device")
     with pytest.raises(ValueError):
         ht.ldlt(ht.DistSparseMatrix.from_scipy(
             sp.random(4, 5, 0.5, random_state=1), be))
