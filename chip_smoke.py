@@ -10,7 +10,8 @@ hpclinalg_torch/csrc, then:
      and on a wide-span pattern (offsets +-3*10^5, three staged pieces), all
      on its 16-byte kernel dia_vec, and on its scalar kernel dia_scalar at
      an odd Lrow (laplace2d(999)'s table cut to its 998001 rows) and with a
-     g 4 bytes off 16; the kernel that ran is read from a profiler trace;
+     g 4 bytes off 16; the kernel that ran is the one the wrapper
+     records at its launch;
   2. holds K2 (ELL SpMV + COO tail) against its twin on the random
      10^6 x 8 nnz/row matrix in f32 and f64 and on a power-law matrix with a
      nonempty tail (also a tenth of it on S = 4 shards), and its gather-only
@@ -83,7 +84,27 @@ hpclinalg_torch/csrc, then:
      solver="device" backend through ht.solve twice (a refactorize-only
      hit), and a tridiagonal chain tree that warns and takes the host
      engine. K1 (refinement) and K2's gather mode (the solve's in and out
-     plans) are counted on the solves.
+     plans) are counted on the solves;
+ 10. drives the saddle-point assembly through the public API in f64 at
+     S = 1 and 4, in a process of its own (python -m
+     hpclinalg_torch.tools.kkt: the profiler is reliable only in a
+     process's first sessions, PERF.md): K = cat(A, B^T, B, -1e-6 I,
+     dims=(2, 2)) with A = laplace2d(1000) and B 10^4 x 10^6 with 16
+     random entries a row (1,010,000 rows), equal to sp.bmat bit for bit;
+     K @ z and K.T @ w; K[0:n, 0:n], K[n:, 0:n], K[p, p] with repeated ids,
+     K[:, j], z[n:], z[ids] = vals (the last write wins), vcat/hcat of
+     vectors, K[0:n, 0:n] @ x; K[bnd, bnd] = I on the 3996 boundary nodes,
+     then K @ z, K.T @ w and issymmetric() on new plans; the nine
+     reductions of K; dense indexing, assignment and concatenation on a
+     10^6 x 8 D; map_rows and mapslices over the grid coordinates;
+     blockdiag(A, A) @ [x; x]; to_backend from the CPU; profile_trace of one
+     K @ z inside annotate("kkt_matvec"), the trace read back for that name
+     and K2's kernel; warmup. Each step is held against scipy or numpy; the
+     launch counters are set to 0 just before the drives and read just
+     after (K2 and its gather mode must have run, and K1 where a plan took
+     the DIA engine), and the first (plan build) and cached times and the
+     cached pass's busy share and largest kernels are printed beside the
+     card.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -94,13 +115,12 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-from hpclinalg_torch.tools.ell_ab import cg, kernel_times
+from hpclinalg_torch.tools.ell_ab import cg, device_events, kernel_times
 from hpclinalg_torch.tools.matrices import (banded_design, laplace2d,
                                             power_law, random_8,
                                             random_cols, wide_span)
@@ -121,6 +141,7 @@ RIDGE_CG_STEPS = 50
 # relative CG error after 50 steps at 2*10^5 x 4096 in scipy), so the CG
 # iterate must equal the direct solution to this relative tolerance
 RIDGE_CG_RTOL = 1e-11
+KKT_M = 10_000          # constraints (rows of B) of the saddle-point phase
 
 
 def check(cond, what):
@@ -140,15 +161,8 @@ def device_us(fn):
     """Device time of the kernels and copies that ``fn`` launches, from a
     torch.profiler trace: the union of their intervals in microseconds, and
     how many there were."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in device_events(fn))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -160,18 +174,10 @@ def device_us(fn):
 def device_kernels(fn, top=4):
     """The kernels and copies ``fn`` launches, their device time summed by
     name over a torch.profiler trace: [(name, us)], largest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     tot = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
-                                                   - e.time_range.start)
+    for e in device_events(fn):
+        tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end
+                                               - e.time_range.start)
     return sorted(tot.items(), key=lambda kv: -kv[1])[:top]
 
 
@@ -206,20 +212,20 @@ def misaligned(t):
 
 def k1_check(label, args, vector):
     """K1 on ``args`` against its plain version, bit for bit, and the
-    kernel that ran by its name in a profiler trace: dia_vec where
-    dia_vector_width says 16 bytes (``vector``), else dia_scalar.
+    kernel that ran, as the wrapper records it at the launch: dia_vec where
+    dia_vector_width says 16 bytes (``vector``), else dia_scalar. (Not
+    from a profiler trace: torch.profiler on the card may record no device
+    activity from some session of a process on, PERF.md.)
     Returns the max abs error (0.0)."""
     from hpclinalg_torch.ops import cuda_dia
 
     dval, g = args[0], args[1]
+    cuda_dia.dia_spmv.kernel = None
     yk = cuda_dia.dia_spmv(*args)
+    ran = cuda_dia.dia_spmv.kernel
     yp = cuda_dia.dia_spmv_plain(*args)
     torch.cuda.synchronize()
     width = cuda_dia.dia_vector_width(dval, g, yk)
-    names = [name for name, _ in device_kernels(
-        lambda: cuda_dia.dia_spmv(*args), top=8)]
-    ran = "dia_vec" if any("dia_vec" in nm for nm in names) else \
-        "dia_scalar" if any("dia_scalar" in nm for nm in names) else names
     lay = cuda_dia.dia_layout(tuple(args[2]), dval.element_size(),
                               cuda_dia.smem_cap(0))
     want = "dia_vec" if vector else "dia_scalar"
@@ -808,8 +814,10 @@ def phase9_device_solver(ht, dev, card, times):
                    "refine_sweeps": len(sweeps) - 1,
                    "plan_build_s": plan_s, "first_ldlt_s": first_s,
                    "factor_launches": nlaunch,
-                   "factor_device_ms": busy_us / 1e3,
-                   "factor_busy_share": busy_us / 1e3 / fac_ms,
+                   # None: not measured (the trace held no device activity)
+                   "factor_device_ms": busy_us / 1e3 if nlaunch else None,
+                   "factor_busy_share":
+                       busy_us / 1e3 / fac_ms if nlaunch else None,
                    "factor_peak_mib": peak,
                    "max_memory_allocated_mib":
                        torch.cuda.max_memory_allocated() / 2 ** 20,
@@ -817,8 +825,9 @@ def phase9_device_solver(ht, dev, card, times):
                    "extend_add_elements": ea_total,
                    "extend_add_padding": ea_pad,
                    "solve_launches": slaunch,
-                   "solve_device_ms": sbusy_us / 1e3,
-                   "solve_busy_share": sbusy_us / 1e3 / solve_ms,
+                   "solve_device_ms": sbusy_us / 1e3 if slaunch else None,
+                   "solve_busy_share":
+                       sbusy_us / 1e3 / solve_ms if slaunch else None,
                    "solve_top_kernels_us": stop}
             record[f"chol_262k_S{S}"] = rec
             print(f"  262k Cholesky S={S} [{card}]: " + json.dumps(rec),
@@ -936,6 +945,33 @@ def phase9_device_solver(ht, dev, card, times):
     ht.clear_plan_cache("device_mf")
     times["phase9"] = record
     return launches
+
+
+def phase10_kkt(card, times):
+    """The saddle-point assembly (python -m hpclinalg_torch.tools.kkt) on the
+    card at S = 1 and 4, f64, in a process of its own: the profiler is
+    reliable only in a process's first sessions (PERF.md), and this one
+    traces one K @ z and the cached pass. Returns the launches of K1, K2,
+    K2's gather mode and K3 it counted over its drives (each count set to
+    0 just before and read just after)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "hpclinalg_torch.tools.kkt", str(K),
+         str(KKT_M), "--trace", os.path.join(root, "build", "traces")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr, flush=True)
+        raise RuntimeError(f"chip_smoke check failed: phase 10 exited "
+                           f"{proc.returncode}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    times["phase10"] = record
+    check(record["card"] == card, f"phase 10 ran on {card}")
+    return record["launches"]
 
 
 def phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times):
@@ -1056,6 +1092,7 @@ def main():
     from hpclinalg_torch.ops import cuda_kpayload as k5
     from hpclinalg_torch.ops import spmv as spmv_mod
     from hpclinalg_torch.solver import native
+    from hpclinalg_torch.utils.warmup import build_kernels
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1070,12 +1107,7 @@ def main():
 
     # ---- build: one nvcc per kernel source, all started together ---------
     t0 = time.perf_counter()
-    sources = ("dia_spmv", "ell_spmv", "ell_resident_spmv", "dia_probe",
-               "kpayload")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(cuda_build.load_kernel_lib, sources))
-    for mod in (cuda_dia, cuda_ell, k3, k4, k5):
-        mod._lib()
+    build_kernels()
     times["build_kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     check(native.load_mf() is not None and native.load_sym() is not None
@@ -1444,6 +1476,14 @@ def main():
     for key, v in launches9.items():
         launches[key] += v
 
+    # ---- phase 10: the saddle-point assembly through the public API, f64 ----
+    print(f"phase 10: saddle-point assembly, K = [[A, B^T], [B, -dI]] with A = "
+          f"laplace2d({K}), B {KKT_M} x {N} (public API, f64) on {card}",
+          flush=True)
+    launches10, t10 = timed_s(lambda: phase10_kkt(card, times))
+    print(f"phase 10 launches: {launches10}; phase 10 took {t10:.1f} s  "
+          f"[{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -1465,24 +1505,29 @@ def main():
          "replaces": "hpclinalg/ops/pallas_dia.py:60",
          "launches": launches["dia"],
          "device_solver_launches": launches9["dia"],
+         "kkt_launches": launches10["dia"],
          "max_abs_err": errs["dia"],
          **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
-         "launches": launches["ell"], "max_abs_err": errs["ell"],
+         "launches": launches["ell"], "kkt_launches": launches10["ell"],
+         "max_abs_err": errs["ell"],
          **timed(("random8", 1, f64))},
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:548",
          "launches": launches["gather"],
          "device_solver_launches": launches9["gather"],
+         "kkt_launches": launches10["gather"],
          "max_abs_err": errs["gather"],
          **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_resident_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_csr.py:123",
-         "launches": launches["resident"], "max_abs_err": errs["resident"],
+         "launches": launches["resident"],
+         "kkt_launches": launches10["resident"],
+         "max_abs_err": errs["resident"],
          **timed(("k3", "N", 1, f64))},
         {"name": "dia_flat_spmv (K4)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/dia_probe.cu",

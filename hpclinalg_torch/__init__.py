@@ -4,13 +4,14 @@ Row-partitioned vectors, CSR sparse matrices and dense matrices stored as
 stacked-shard tensors on one device; memoized exchange, SpMV, SpMM,
 transpose, addition and SpGEMM plans; hand-written Hopper kernels for the
 DIA, ELL and resident-x ELL SpMV engines and for the DIA and k-payload
-probes (``csrc/``, driven by ``hpclinalg_torch.tools``); and the host C++
-multifrontal direct solver.
+probes (``csrc/``, driven by ``hpclinalg_torch.tools``); indexing, index
+assignment, block assembly, sparse reductions and ``map_rows``; and the
+host C++ and device multifrontal direct solvers.
 The JAX package ``hpclinalg`` is the reference it is tested against; this
 package never imports it or JAX.
 """
 
-from .backend import Backend, backend_auto, backends_compatible
+from .backend import Backend, backend_auto, backend_serial, backends_compatible
 from .cache import cache_sizes, check_cache_sizes, clear_plan_cache
 from .hashing import (dense_structural_hash, partition_hash,
                       sparse_structural_hash)
@@ -23,11 +24,19 @@ from .ops.diagonal import diag, dropzeros, tril, triu
 from .ops.repartition import (repartition, repartition_dense,
                               repartition_vector)
 from .ops.sparse_build import spdiagm, speye, sprand_dist, spzeros
+from .ops.blocks import (blockdiag, cat, cat_dense, cat_sparse, hcat_dense,
+                         hcat_sparse, hcat_vectors, vcat_dense, vcat_sparse,
+                         vcat_vectors)
+from .ops.map_rows import map_rows, vertex_indices
 from .solver.api import BackslashCache, Factorization, Symmetric, ldlt, lu, solve
-from .utils.convert import from_reference
+from .utils.convert import (clear_solver_caches, comm_rank, comm_size,
+                            from_reference, to_backend)
+from .utils.io import io0, show
+from .utils.profiling import annotate, profile_trace
+from .utils.warmup import warmup
 
 __all__ = [
-    "Backend", "backend_auto", "backends_compatible",
+    "Backend", "backend_auto", "backend_serial", "backends_compatible",
     "cache_sizes", "check_cache_sizes", "clear_plan_cache",
     "dense_structural_hash", "partition_hash", "sparse_structural_hash",
     "uniform_partition",
@@ -36,5 +45,9 @@ __all__ = [
     "repartition_dense", "repartition_vector",
     "spdiagm", "speye", "sprand_dist", "spzeros",
     "BackslashCache", "Factorization", "Symmetric", "ldlt", "lu", "solve",
-    "from_reference",
+    "blockdiag", "cat", "cat_sparse", "hcat_sparse", "vcat_sparse",
+    "cat_dense", "hcat_dense", "vcat_dense", "vcat_vectors", "hcat_vectors",
+    "map_rows", "vertex_indices", "io0", "show", "warmup", "profile_trace",
+    "annotate", "to_backend", "comm_rank", "comm_size",
+    "clear_solver_caches", "from_reference",
 ]

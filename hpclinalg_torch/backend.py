@@ -110,3 +110,11 @@ def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
                                "device='cpu' to run on the CPU")
         device = "cuda"
     return Backend(torch.device(device), nshards, dtype, index_dtype, solver)
+
+
+def backend_serial(dtype=np.float64, index_dtype=np.int32,
+                   solver: str = "multifrontal", device=None) -> Backend:
+    """One shard (ref: CommSerial, backends.jl:207-327) on ``device``, by
+    default the current CUDA device; raises without one unless the caller
+    asks for the CPU (``device="cpu"``), as ``backend_auto`` does."""
+    return backend_auto(1, dtype, index_dtype, device=device, solver=solver)

@@ -25,9 +25,6 @@ from .partition import (
     validate_partition,
 )
 
-_LATER = ("{} needs {}, which the port has not reached yet (ROADMAP.md, "
-          "queue 1, item 9)")
-
 
 def _is_scalar(o) -> bool:
     return isinstance(o, (int, float, complex, np.number)) or (
@@ -322,14 +319,32 @@ class DistDenseMatrix:
         return repartition_dense(self, new_partition)
 
     def mapslices(self, fn, axis=1):
-        raise NotImplementedError(_LATER.format("mapslices", "map_rows"))
+        """``fn`` over each row (axis=1, through ``map_rows``) or each
+        column (axis=0: the columns span the shards, so the matrix is
+        gathered whole on its device, ``fn`` mapped over the columns, each
+        returning a (kout,) slice, and the (kout, ncols) result laid out by
+        rows; ref: mapslices, dense.jl:1476)."""
+        from .ops.map_rows import map_rows
+
+        if axis == 1:
+            return map_rows(fn, self)
+        if axis != 0:
+            raise ValueError("axis must be 0 (columns) or 1 (rows)")
+        full = allgather_full(self.data, self.row_partition, self.backend)
+        out = torch.func.vmap(fn, in_dims=1, out_dims=1)(full)
+        rp = uniform_partition(out.shape[0], self.backend.nshards)
+        return DistDenseMatrix(scatter_from_full(out, rp, self.backend), rp,
+                               out.shape[1], self.backend)
 
     def __getitem__(self, key):
-        raise NotImplementedError(_LATER.format("indexing", "dense_index"))
+        from .ops.dense_index import dense_getindex
+
+        return dense_getindex(self, key)
 
     def __setitem__(self, key, value):
-        raise NotImplementedError(_LATER.format("index assignment",
-                                                "setindex"))
+        from .ops.setindex import dense_setindex
+
+        dense_setindex(self, key, value)
 
     def __repr__(self):
         return (f"DistDenseMatrix(shape={self.shape}, shards="

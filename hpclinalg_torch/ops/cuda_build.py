@@ -9,6 +9,7 @@ machine without nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -66,6 +67,18 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a kernel entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch_range(name: str):
+    """A range named after the kernel on the profiler's host timeline while
+    a torch.profiler session is on, else a no-op context: a trace then
+    names each hand-written kernel at its launch even where it recorded no
+    device activity."""
+    import torch
+
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -280,14 +280,21 @@ def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
     gcols = min(g.shape[1], pad_to) if pad_to else g.shape[1]
     lib = _lib()
     fn = lib.dia_spmv_f64 if dt == torch.float64 else lib.dia_spmv_f32
-    from .cuda_build import check, stream_ptr
+    from .cuda_build import check, launch_range, stream_ptr
 
-    rc = fn(dval.data_ptr(), g.data_ptr(), y.data_ptr(), S, Lrow, gcols,
-            g.stride(0), ctypes.byref(_c_layout(layout)), layout.threads,
-            dia_vector_width(dval, g, y), layout.smem_bytes, stream_ptr(g))
+    width = dia_vector_width(dval, g, y)
+    kernel = "dia_vec" if width > 1 else "dia_scalar"
+    with launch_range(kernel):
+        rc = fn(dval.data_ptr(), g.data_ptr(), y.data_ptr(), S, Lrow, gcols,
+                g.stride(0), ctypes.byref(_c_layout(layout)), layout.threads,
+                width, layout.smem_bytes, stream_ptr(g))
     check(rc, "dia_spmv")
     dia_spmv.launches += 1
+    dia_spmv.kernel = kernel
     return y
 
 
 dia_spmv.launches = 0
+# the kernel of the last launch: "dia_vec" or "dia_scalar" (the entry point
+# runs dia_vec exactly when it is passed a width above 1)
+dia_spmv.kernel = None

@@ -285,12 +285,13 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     gcols = min(g.shape[1], pad_to) if pad_to else g.shape[1]
     lib = _lib()
     fn = lib.ell_spmv_f64 if dt == torch.float64 else lib.ell_spmv_f32
-    from .cuda_build import check, stream_ptr
+    from .cuda_build import check, launch_range, stream_ptr
 
-    rc = fn(vals.data_ptr(), cols.data_ptr(), rowlen.data_ptr(),
-            tv.data_ptr(), tr.data_ptr(), tg.data_ptr(), g.data_ptr(),
-            y.data_ptr(), S, Lrow, W, Tpad, gcols, g.stride(0), lanes, vec,
-            stream_ptr(g))
+    with launch_range("ell_rows"):
+        rc = fn(vals.data_ptr(), cols.data_ptr(), rowlen.data_ptr(),
+                tv.data_ptr(), tr.data_ptr(), tg.data_ptr(), g.data_ptr(),
+                y.data_ptr(), S, Lrow, W, Tpad, gcols, g.stride(0), lanes,
+                vec, stream_ptr(g))
     check(rc, "ell_spmv")
     ell_spmv.launches += 1
     return y
@@ -319,10 +320,11 @@ def gather(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         return xe
     lib = _lib()
     fn = lib.gather_f64 if x.dtype == torch.float64 else lib.gather_f32
-    from .cuda_build import check, stream_ptr
+    from .cuda_build import check, launch_range, stream_ptr
 
-    rc = fn(x.data_ptr(), src.data_ptr(), xe.data_ptr(), S, D, x.stride(0),
-            stream_ptr(x))
+    with launch_range("gather_rows"):
+        rc = fn(x.data_ptr(), src.data_ptr(), xe.data_ptr(), S, D,
+                x.stride(0), stream_ptr(x))
     check(rc, "gather")
     gather.launches += 1
     return xe

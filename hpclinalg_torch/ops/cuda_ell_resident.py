@@ -194,13 +194,14 @@ def ell_resident_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     fn = lib.ell_resident_spmv_f64 if dt == torch.float64 \
         else lib.ell_resident_spmv_f32
-    from .cuda_build import check, stream_ptr
+    from .cuda_build import check, launch_range, stream_ptr
 
-    rc = fn(vals.data_ptr(), cols.data_ptr(), rowlen.data_ptr(),
-            wt.data_ptr() if win_cap else None,
-            tv.data_ptr(), tr.data_ptr(), tg.data_ptr(), g.data_ptr(),
-            y.data_ptr(), S, Lrow, W, Tpad, G, gcols, g.stride(0), lanes, vec,
-            tile, win_cap, aligned, stream_ptr(g))
+    with launch_range("ell_resident_rows"):
+        rc = fn(vals.data_ptr(), cols.data_ptr(), rowlen.data_ptr(),
+                wt.data_ptr() if win_cap else None,
+                tv.data_ptr(), tr.data_ptr(), tg.data_ptr(), g.data_ptr(),
+                y.data_ptr(), S, Lrow, W, Tpad, G, gcols, g.stride(0), lanes,
+                vec, tile, win_cap, aligned, stream_ptr(g))
     check(rc, "ell_resident_spmv")
     ell_resident_spmv.launches += 1
     return y

@@ -119,7 +119,17 @@ def csr_from_rows(local_rows: np.ndarray, nrows: int) -> np.ndarray:
 
 def compress_cols(gcols: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(col_indices, colval): the sorted distinct global columns and each
-    stored value's index into them."""
+    stored value's index into them. Up to 2^24 columns a presence bitmap
+    and a rank table find them in two linear passes instead of a sort."""
+    gcols = np.asarray(gcols, dtype=np.int64)
+    hi = int(gcols.max()) + 1 if len(gcols) else 0
+    if 0 < hi <= (1 << 24):
+        present = np.zeros(hi, bool)
+        present[gcols] = True
+        ci = np.flatnonzero(present).astype(np.int64)
+        rank = np.empty(hi, np.int32)
+        rank[ci] = np.arange(len(ci), dtype=np.int32)
+        return ci, rank[gcols]
     ci = np.unique(gcols)
     return ci, np.searchsorted(ci, gcols).astype(np.int32)
 
@@ -458,6 +468,74 @@ class DistSparseMatrix:
         from .ops import sparse_repartition
 
         return sparse_repartition.repartition_sparse(self, new_row_partition)
+
+    # -- reductions (ref sparse.jl:2172-2244, 2586-2723) -------------------------
+    def norm(self, p=2):
+        """Elementwise norm of the stored values (Frobenius for p = 2)."""
+        a = torch.abs(self.nzval)
+        if p == 2:
+            return torch.sqrt(torch.sum(a ** 2))
+        if p == 1:
+            return torch.sum(a)
+        if p == np.inf:
+            return torch.max(a)
+        return torch.sum(a ** p) ** (1.0 / p)
+
+    def opnorm(self, p=np.inf):
+        """Induced 1- and inf-norms: the largest absolute column or row sum."""
+        from .ops import reductions
+
+        if p == np.inf:
+            return reductions.row_abs_sum(self).max()
+        if p == 1:
+            return reductions.col_abs_sum(self).max()
+        raise ValueError("opnorm supports p=1 and p=inf")
+
+    def sum(self, axis=None):
+        """The sum of all entries, or a DistVector of row sums (axis=1, on
+        the row partition) or column sums (axis=0, on the column partition)."""
+        from .ops import reductions
+
+        if axis is None:
+            return torch.sum(self.nzval)
+        if axis == 1:
+            return reductions.row_sum(self)
+        if axis == 0:
+            return reductions.col_sum(self)
+        raise ValueError("axis must be None, 0 or 1")
+
+    def tr(self):
+        from .ops import reductions
+
+        return reductions.trace(self)
+
+    def maximum(self):
+        """The largest entry, the implicit zeros counted (ref sparse.jl:2650)."""
+        from .ops import reductions
+
+        return reductions.maximum(self)
+
+    def minimum(self):
+        from .ops import reductions
+
+        return reductions.minimum(self)
+
+    def mean(self):
+        """The mean over all m*n entries (ref sparse.jl:2678)."""
+        from .ops import reductions
+
+        return reductions.mean(self)
+
+    # -- indexing (ref indexing.jl) ----------------------------------------------
+    def __getitem__(self, key):
+        from .ops import sparse_index
+
+        return sparse_index.sparse_getindex(self, key)
+
+    def __setitem__(self, key, value):
+        from .ops import setindex
+
+        setindex.sparse_setindex(self, key, value)
 
     def __repr__(self):
         return (f"DistSparseMatrix(shape={self.shape}, nnz={self.nnz()}, "

@@ -112,7 +112,9 @@ def cg_step_ms(A, b) -> dict:
 
 def device_events(body):
     """The kernels and copies ``body`` runs on the card, from a
-    torch.profiler trace."""
+    torch.profiler trace. The device timeline's copies of host ranges
+    (``annotate``, the kernel wrappers' ``launch_range``) are left out:
+    they are no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,7 +122,8 @@ def device_events(body):
                              ProfilerActivity.CUDA]) as prof:
         body()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_times(fn, flush, skip) -> dict:

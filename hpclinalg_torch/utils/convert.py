@@ -78,3 +78,58 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
     if ncols is not None and st.shape[1] != int(ncols):
         raise ValueError(f"ncols {ncols} != column partition end {st.shape[1]}")
     return DistSparseMatrix(st, backend.tensor(np.asarray(nzval)), backend)
+
+
+def to_backend(x, backend: Backend):
+    """A copy of a distributed container on another Backend: another
+    device, shard count or dtype (the target backend's dtype), on the
+    uniform partition of the target's shard count, as the JAX package's
+    ``to_backend`` gives. Vectors and dense matrices move gathered whole
+    from device to device; a sparse matrix's structure is rebuilt on the
+    host, where it lives, and its values go with it."""
+    from ..backend import torch_dtype
+    from ..parallel.mesh import allgather_full, scatter_from_full
+    from ..partition import uniform_partition
+
+    dt = torch_dtype(backend.dtype)
+    if isinstance(x, DistVector):
+        full = allgather_full(x.data, x.partition, x.backend)
+        p = uniform_partition(x.n, backend.nshards)
+        return DistVector(scatter_from_full(full.to(backend.device, dt), p,
+                                            backend), p, backend)
+    if isinstance(x, DistDenseMatrix):
+        full = allgather_full(x.data, x.row_partition, x.backend)
+        p = uniform_partition(x.m, backend.nshards)
+        return DistDenseMatrix(scatter_from_full(full.to(backend.device, dt),
+                                                 p, backend),
+                               p, x.ncols, backend)
+    if isinstance(x, DistSparseMatrix):
+        return DistSparseMatrix.from_scipy(x.to_scipy(), backend,
+                                           dtype=backend.dtype)
+    raise TypeError(f"cannot convert {type(x)} between backends")
+
+
+def comm_size(backend: Backend) -> int:
+    """The shard count, the analogue of the world size (ref: comm_size)."""
+    return backend.nshards
+
+
+def comm_rank() -> int:
+    """This process's rank: the ``torch.distributed`` rank when a process
+    group is up, else 0 (ref: comm_rank)."""
+    from .io import process_rank
+
+    return process_rank()
+
+
+SOLVER_CACHES = ("symbolic", "solver_perm", "backslash", "device_mf")
+
+
+def clear_solver_caches() -> None:
+    """Drop the cached symbolic analyses, backslash factorizations and
+    device solver plans (ref: clear_mumps_analysis_cache!,
+    mumps_factorization.jl:68-88)."""
+    from ..cache import clear_plan_cache
+
+    for name in SOLVER_CACHES:
+        clear_plan_cache(name)

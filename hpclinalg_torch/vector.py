@@ -421,6 +421,17 @@ class DistVector:
 
         return LazyTranspose(self.conj())
 
+    # -- indexing (ref indexing.jl:79, 1339, 1871) -----------------------------
+    def __getitem__(self, key):
+        from .ops.indexing import vector_getindex
+
+        return vector_getindex(self, key)
+
+    def __setitem__(self, key, value):
+        from .ops.indexing import vector_setindex
+
+        vector_setindex(self, key, value)
+
     def __repr__(self):
         return (f"DistVector(n={self.n}, shards={self.backend.nshards}, "
                 f"dtype={self.dtype}, partition={self.partition.tolist()})")

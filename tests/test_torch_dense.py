@@ -279,12 +279,18 @@ def test_repartition_dense(S):
 
 
 def test_later_slices_raise():
-    """Indexing, index assignment and mapslices need dense_index, setindex
-    and map_rows, which later slices port."""
-    Mt = ht.DistDenseMatrix.from_global(dense(6, 4), ht.backend_auto(2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="dense_index"):
-        Mt[1:3, 0:2]
-    with pytest.raises(NotImplementedError, match="setindex"):
-        Mt[0:1, 0:1] = 1.0
-    with pytest.raises(NotImplementedError, match="map_rows"):
-        Mt.mapslices(lambda r: r, axis=1)
+    """Indexing, index assignment and mapslices work (dense_index, setindex
+    and map_rows); what the JAX package rejects still raises: a scalar
+    index and an axis past 1."""
+    M = dense(6, 4)
+    Mt = ht.DistDenseMatrix.from_global(M, ht.backend_auto(2, device="cpu"))
+    np.testing.assert_array_equal(Mt[1:3, 0:2].to_numpy(), M[1:3, 0:2])
+    np.testing.assert_array_equal(Mt.mapslices(lambda r: r, axis=1)
+                                  .to_numpy(), M)
+    Mt[0:1, 0:1] = 1.0
+    M[0, 0] = 1.0
+    np.testing.assert_array_equal(Mt.to_numpy(), M)
+    with pytest.raises(TypeError):
+        Mt[1, 2]
+    with pytest.raises(ValueError):
+        Mt.mapslices(lambda r: r, axis=2)

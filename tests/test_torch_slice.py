@@ -230,3 +230,77 @@ def _cg(A, b, steps):
     for _ in range(steps):
         x, r, p = cg_step(A, x, r, p)
     return x, r
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_kkt_assembly(S, tmp_path):
+    """The saddle-point assembly of chip_smoke.py phase 10 at k = 12,
+    m = 30: every step held against scipy by ``kkt.drive`` itself, and the
+    assembled, sliced and edited K against the JAX package's (structure,
+    hash and values bit for bit)."""
+    from hpclinalg_torch.tools import kkt
+
+    I = kkt.Inputs(12, 30, seed=5)
+    be = ht.backend_auto(S, device="cpu")
+    out = kkt.drive(be, I, trace_dir=str(tmp_path))
+    assert out["engine"] in ("dia", "densify", "ell", "resident", "segment")
+    bj = hl.backend_auto(nshards=S)
+    Kj = hl.cat(*[hl.DistSparseMatrix.from_scipy(M, bj)
+                  for M in (I.A, I.Bt, I.B, I.C)], dims=(2, 2))
+    Kt = ht.cat(*[ht.DistSparseMatrix.from_scipy(M, be)
+                  for M in (I.A, I.Bt, I.B, I.C)], dims=(2, 2))
+    n = I.n
+    for t, j in ((Kt, Kj), (Kt[0:n, 0:n], Kj[0:n, 0:n]),
+                 (Kt[I.p, I.p], Kj[I.p, I.p]), (Kt[n:, :], Kj[n:, :])):
+        assert t.hash == j.hash
+        np.testing.assert_array_equal(t.host_values(),
+                                      np.asarray(j.to_scipy().data))
+    Kt[I.bnd, I.bnd] = sp.eye(len(I.bnd))
+    Kj[I.bnd, I.bnd] = sp.eye(len(I.bnd))
+    assert Kt.hash == Kj.hash
+    np.testing.assert_array_equal(Kt.to_scipy().toarray(),
+                                  I.K_edit.toarray())
+    for name in ("norm", "tr", "maximum", "minimum", "mean"):
+        np.testing.assert_allclose(float(getattr(Kt, name)()),
+                                   float(getattr(Kj, name)()), rtol=1e-12)
+    for p in (1, np.inf):
+        np.testing.assert_allclose(float(Kt.opnorm(p)), float(Kj.opnorm(p)),
+                                   rtol=1e-12)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_from_reference_after_cat_index_and_assignment(S):
+    """A matrix the JAX package built with cat, __getitem__ and
+    __setitem__ carries over with its hash; the same operation on both
+    sides then gives bit-equal results."""
+    from hpclinalg_torch.tools import kkt
+
+    I = kkt.Inputs(10, 20, seed=6)
+    bj = hl.backend_auto(nshards=S)
+    bt = ht.backend_auto(S, device="cpu")
+    Kj = hl.cat(*[hl.DistSparseMatrix.from_scipy(M, bj)
+                  for M in (I.A, I.Bt, I.B, I.C)], dims=(2, 2))
+    Kj[I.bnd, I.bnd] = sp.eye(len(I.bnd))
+    Sj = Kj[I.p, I.p]
+    vj = hl.DistVector.from_global(I.z, bj)[5:80]
+    vj[np.array([3, 9, 3])] = np.array([1.0, 2.0, 3.0])
+    for Mj in (Kj, Sj):
+        Mt = ht.from_reference(bt, Mj)
+        assert Mt.hash == Mj.hash
+        np.testing.assert_array_equal(Mt.to_scipy().toarray(),
+                                      Mj.to_scipy().toarray())
+        np.testing.assert_array_equal(Mt[3:40, 7:].to_scipy().toarray(),
+                                      Mj[3:40, 7:].to_scipy().toarray())
+        assert Mt[3:40, 7:].hash == Mj[3:40, 7:].hash
+        Mt[[0, 2], [1]] = np.array([[4.0], [5.0]])
+        Mj[[0, 2], [1]] = np.array([[4.0], [5.0]])
+        assert Mt.hash == Mj.hash
+        np.testing.assert_array_equal(Mt.host_values(),
+                                      np.asarray(Mj.to_scipy().data))
+    vt = ht.from_reference(bt, vj)
+    assert np.array_equal(vt.partition, vj.partition)
+    np.testing.assert_array_equal(vt[2:50:3].to_numpy(),
+                                  np.asarray(vj[2:50:3].to_numpy()))
+    Vt = ht.vcat_vectors(vt, vt)
+    Vj = hl.vcat_vectors(vj, vj)
+    np.testing.assert_array_equal(Vt.to_numpy(), np.asarray(Vj.to_numpy()))
