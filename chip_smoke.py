@@ -104,7 +104,28 @@ hpclinalg_torch/csrc, then:
      after (K2 and its gather mode must have run, and K1 where a plan took
      the DIA engine), and the first (plan build) and cached times and the
      cached pass's busy share and largest kernels are printed beside the
-     card.
+     card;
+ 11. drives complex values through the public API in c64 and c128, each
+     kernel in one launch on torch's interleaved values: K1 on the
+     Helmholtz operator laplace2d(1000) - 0.5 I + 0.05i I (n = 10^6) at
+     S = 1 and 4 (H @ z, the conjugating z.dot(w), norm, an axpy, H.H @ z);
+     K2 on the random and power-law matrices with seeded complex values
+     (a tenth of the power law at S = 4) and mixed real/complex products;
+     K3 on the ridge N's pattern (c64 at S = 1 and c128 at S = 4 take K3,
+     c128 at S = 1 is over the cap and takes K2) and at the cap (c128 at
+     cap // 16 slots, c64 at cap // 8 with 16-byte and one-entry loads);
+     each kernel against its plain version (rtol 1e-12 in c128, 1e-5 in
+     c64) and each product against scipy; the complex device solver:
+     ldlt(method="device", spd=False) on the Helmholtz operator at 512^2
+     (c128 at S = 1 and 4 against the host engine, c64 at S = 1), lu on a
+     permuted laplace2d(256) with unsymmetric complex values (K2 in its
+     refinement) with its transposed solve, and a solver="device" backend
+     through ht.solve twice; then times each complex kernel beside its
+     plain version, bound and cuSPARSE's complex CSR SpMV (where PyTorch
+     has one), K1 in c128 also beside the former route (four real K1
+     products), and the complex device factor and solve beside phase 9's
+     f64 ones. The launch counters are set to 0 just before each drive
+     and read just after.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -121,9 +142,9 @@ import scipy.sparse as sp
 import torch
 
 from hpclinalg_torch.tools.ell_ab import cg, device_events, kernel_times
-from hpclinalg_torch.tools.matrices import (banded_design, laplace2d,
-                                            power_law, random_8,
-                                            random_cols, wide_span)
+from hpclinalg_torch.tools.matrices import (banded_design, complex_values,
+                                            helmholtz, laplace2d, power_law,
+                                            random_8, random_cols, wide_span)
 from hpclinalg_torch.tools.timing import Timer, bound_ms
 
 SEED = 0
@@ -887,8 +908,8 @@ def phase9_device_solver(ht, dev, card, times):
         del F
 
         # complex-symmetric LDL, c128, S = 4: the complex payloads cross
-        # the exchange as real pairs, and K1 takes complex operands as
-        # real products
+        # the exchange as real pairs, and K1 takes them in its c128
+        # instantiation (phase 11 drives the complex path at full size)
         kc = DEV_K_COMPLEX
         Ac = (laplace2d(kc).astype(np.complex128)
               + 0.4j * sp.eye(kc * kc)).tocsr()
@@ -1080,6 +1101,444 @@ def phase8_dense(ht, dev, R8, L1000, Ab, timer, card, times):
         if k_.startswith(("spmm_", "ridge_S1_AtY", "ridge_S4_AtY",
                           "ridge_S1_multi", "ridge_S4_multi")):
             print(f"  {k_}: {v_:.4f}  [{card}]", flush=True)
+
+
+# ---- phase 11: complex values on the card ----------------------------------
+
+CPLX = ((torch.complex128, np.complex128), (torch.complex64, np.complex64))
+# products held to the rtol of their parts' type (K1_RTOL, K2_RTOL)
+CPLX_RTOL = {torch.complex128: K2_RTOL[torch.float64],
+             torch.complex64: K2_RTOL[torch.float32]}
+HELM_K = 1000          # Helmholtz(1000), n = 10^6: K1's complex instantiation
+HELM_DEV_K = 512       # Helmholtz(512), n = 262,144: the complex device LDL
+LU_K = 256             # the permuted laplace2d(256) of the complex device LU
+CAP_ROWS = 300_000     # rows of the at-the-cap matrices (random_cols)
+# residual bounds of the device solves: c128 as phase 9's, c64 as the JAX
+# package's tests/test_cplx.py
+CPLX_RES = {torch.complex128: 1e-10, torch.complex64: 1e-4}
+
+
+def tag(dt):
+    return {torch.complex128: "c128", torch.complex64: "c64"}[dt]
+
+
+def cplx_vec(rng, n):
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+def rounded(a, npdt):
+    """a rounded to npdt and widened back to complex128: the inputs a run in
+    npdt sees, for a reference computed in complex128."""
+    if sp.issparse(a):
+        return a.astype(npdt).astype(np.complex128)
+    return np.asarray(a).astype(npdt).astype(np.complex128)
+
+
+def held_to(ref, got, dt, what, scale=None):
+    """``got`` (numpy) against the complex128 reference ``ref`` within
+    CPLX_RTOL[dt] of max|ref|, or of ``scale`` where given (a sum's
+    condition, the sum of its terms' magnitudes); returns max_abs_err."""
+    got = np.asarray(got, np.complex128)
+    ref = np.asarray(ref, np.complex128)
+    err = float(np.abs(got - ref).max())
+    s = float(np.abs(ref).max()) if scale is None else scale
+    check(err <= CPLX_RTOL[dt] * s, f"{what} against scipy/numpy, "
+          f"max_abs_err {err:.3e} (rtol {CPLX_RTOL[dt]:g} of "
+          f"{'max|ref|' if scale is None else 'the sum of |terms|'})")
+    return err
+
+
+def csr_checked(M, dt, dev, xh, ref):
+    """``csr_call`` in a complex dtype (cuSPARSE's complex CSR SpMV), its
+    result checked against ``ref``."""
+    f = csr_call(M, dt, dev, xh)
+    held_to(ref, f().cpu().numpy(), dt,
+            f"the library call (CSR SpMV) {dt}")
+    return f
+
+
+def phase11_complex(ht, dev, R8, PL, N_sc, timer, card, times):
+    """Complex values on the card through the public API: K1, K2 (rows and
+    tail) and K3 each in c64 and c128 in one launch, held against their
+    plain versions and scipy; the complex device LDL and LU; their times.
+    Returns (launches by kernel and type, max_abs_err by kernel and type,
+    the timed c128 cases by kernel)."""
+    import warnings
+
+    from hpclinalg_torch.ops import cuda_dia, cuda_ell
+    from hpclinalg_torch.ops import cuda_ell_resident as k3
+    from hpclinalg_torch.ops import spmv as spmv_mod
+    from hpclinalg_torch.parallel.mesh import allgather_full
+    from hpclinalg_torch.solver import device_mf
+
+    kernels = {"dia": cuda_dia.dia_spmv, "ell": cuda_ell.ell_spmv,
+               "resident": k3.ell_resident_spmv}
+    launches = {key: {"c64": 0, "c128": 0} for key in kernels}
+    errs = {key: {"c64": 0.0, "c128": 0.0} for key in kernels}
+    bench = {}
+    rng = np.random.default_rng(SEED + 40)
+
+    def drive(dt, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after, added to dt's; returns (result, the counts)."""
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        c = {key: f.launches for key, f in kernels.items()}
+        for key, v in c.items():
+            launches[key][tag(dt)] += v
+        return out, c
+
+    def held(key, label, dt, yk, yp):
+        torch.cuda.synchronize()
+        ok, err = close(yk, yp, CPLX_RTOL[dt])
+        errs[key][tag(dt)] = max(errs[key][tag(dt)], err)
+        check(ok and yk.dtype == dt, f"{label} {tag(dt)}: the kernel's "
+              f"{yk.dtype} against its plain version, max_abs_err "
+              f"{err:.3e} (rtol {CPLX_RTOL[dt]:g} of max|y|)")
+
+    # (a) Helmholtz(1000), K1 ------------------------------------------------
+    cap = k3.smem_cap(dev)
+    H = helmholtz(HELM_K)
+    n = max(H.shape[0], R8.shape[1], PL.shape[1], cap // 8)
+    zh, wh = cplx_vec(rng, n)[: H.shape[0]], cplx_vec(rng, H.shape[0])
+    zh = np.concatenate([zh, cplx_vec(rng, n - H.shape[0])])
+    alpha = 0.75 - 0.5j
+    for S in (1, 4):
+        for dt, npdt in CPLX:
+            be = ht.backend_auto(S, dtype=npdt, device=dev)
+            Hd = ht.DistSparseMatrix.from_scipy(H, be)
+            z = ht.DistVector.from_global(zh[: H.shape[0]], be)
+            w = ht.DistVector.from_global(wh, be)
+            plan, g, pad_to = engine_inputs(Hd, z)
+            dval = spmv_mod._dia_values(Hd, plan)
+            args = (dval, g, plan.offsets, plan.bias_lo, plan.bias_hi, pad_to)
+            cuda_dia.dia_spmv.kernel = None
+            c0 = cuda_dia.dia_spmv.launches
+            yk = cuda_dia.dia_spmv(*args)
+            ran = cuda_dia.dia_spmv.kernel
+            check(plan.offsets is not None and ran == "dia_vec"
+                  and cuda_dia.dia_kernel(dval, g, yk) == ran
+                  and cuda_dia.dia_spmv.launches == c0 + 1,
+                  f"Helmholtz({HELM_K}) S={S} {tag(dt)}: the DIA engine "
+                  f"({len(plan.offsets or ())} offsets), K1 {ran} in one "
+                  f"launch on {dval.dtype} values ("
+                  f"{cuda_dia.dia_vector_width(dval, g, yk)} rows an access)")
+            held("dia", f"K1 Helmholtz({HELM_K}) S={S}", dt, yk,
+                 cuda_dia.dia_spmv_plain(*args))
+            Hr, wr = rounded(H, npdt), rounded(wh, npdt)
+            zr = rounded(zh[: H.shape[0]], npdt)
+
+            def ops(Hd=Hd, z=z, w=w, c128=dt == torch.complex128):
+                out = {"y": (Hd @ z).to_numpy(), "dot": complex(z.dot(w)),
+                       "norm": float(z.norm()),
+                       "axpy": (z * alpha + w).to_numpy()}
+                if c128:
+                    out["yH"] = (Hd.H @ z).to_numpy()
+                return out
+            got, c = drive(dt, ops)
+            label = f"Helmholtz({HELM_K}) S={S} {tag(dt)}"
+            held_to(Hr @ zr, got["y"], dt, f"{label} H @ z")
+            held_to(np.array([np.vdot(zr, wr)]), np.array([got["dot"]]), dt,
+                    f"{label} z.dot(w) (conjugating z)",
+                    scale=float(np.abs(zr) @ np.abs(wr)))
+            held_to(np.array([np.linalg.norm(zr)]),
+                    np.array([got["norm"]]), dt, f"{label} norm(z)")
+            held_to(alpha * zr + wr, got["axpy"], dt, f"{label} z*a + w")
+            if "yH" in got:
+                held_to(Hr.conj().T @ zr, got["yH"], dt, f"{label} H.H @ z")
+            want = 2 if "yH" in got else 1
+            check(c["dia"] == want and c["ell"] == 0,
+                  f"{label}: the drive launched K1 {c['dia']} times")
+            if S == 1 or dt == torch.complex128:
+                bench[("dia", "helmholtz", S, dt)] = (
+                    lambda a=args: cuda_dia.dia_spmv(*a),
+                    lambda a=args: cuda_dia.dia_spmv_plain(*a),
+                    csr_checked(H, dt, dev, zh[: H.shape[0]], Hr @ zr),
+                    dia_bytes(plan, dval, dt), 8 * Hd.nnz(),
+                    # the former route: four real products of the parts
+                    (lambda a=args: cuda_dia.complex_products(
+                        lambda v, x: cuda_dia.dia_spmv(v, x, *a[2:]),
+                        a[0], a[1])) if dt == torch.complex128 and S == 1
+                    else None)
+
+    # (b) general patterns, K2 ---------------------------------------------
+    R8c = complex_values(R8, SEED + 41)
+    PLc = complex_values(PL, SEED + 42)
+    PL4c = complex_values(power_law(N // 10, SEED + 3), SEED + 43)
+    for name, M, S in (("random8", R8c, 1), ("power_law", PLc, 1),
+                       ("power_law_tenth", PL4c, 4)):
+        for dt, npdt in CPLX:
+            be = ht.backend_auto(S, dtype=npdt, device=dev)
+            Md = ht.DistSparseMatrix.from_scipy(M, be)
+            zs = zh[: M.shape[1]]
+            z = ht.DistVector.from_global(zs, be)
+            plan, g, pad_to = engine_inputs(Md, z)
+            args, kw, _ = ell_call(plan, Md, g, pad_to)
+            label = f"K2 {name} S={S}"
+            check(plan.engine(dt) == "ell"
+                  and (plan.ell_Tpad > 0) == (name != "random8"),
+                  f"{label} {tag(dt)}: the ELL engine (W={plan.ell_W}, "
+                  f"Tpad={plan.ell_Tpad}, lanes {kw['lanes']}, "
+                  f"{cuda_ell.unit_entries(plan.ell_W, dt.itemsize)} entries "
+                  "a load)")
+            held("ell", label, dt, cuda_ell.ell_spmv(*args, **kw),
+                 cuda_ell.ell_spmv_plain(*args))
+            y, c = drive(dt, lambda: (Md @ z).to_numpy())
+            ref = rounded(M, npdt) @ rounded(zs, npdt)
+            held_to(ref, y, dt, f"{label} {tag(dt)} A @ z")
+            check(c["ell"] == 1, f"{label} {tag(dt)}: A @ z launched K2 once")
+            if S == 1:
+                bench[("ell", name, S, dt)] = (
+                    lambda a=args, k=kw: cuda_ell.ell_spmv(*a, **k),
+                    lambda a=args: cuda_ell.ell_spmv_plain(*a),
+                    csr_checked(M, dt, dev, zs, ref),
+                    ell_bytes(plan, Md, dt), 8 * Md.nnz(), None)
+    # mixed real and complex: a complex A times a real x, a real R times a
+    # complex z (the real operand is widened; one complex launch each)
+    be = ht.backend_auto(1, dtype=np.complex128, device=dev)
+    Cd = ht.DistSparseMatrix.from_scipy(R8c, be)
+    Rd = ht.DistSparseMatrix.from_scipy(R8, be, dtype=np.float64)
+    xr = rng.standard_normal(R8.shape[1])
+    xd = ht.DistVector.from_global(xr, be, dtype=np.float64)
+    zd = ht.DistVector.from_global(zh[: R8.shape[1]], be)
+    (y1, y2), c = drive(torch.complex128, lambda: (
+        (Cd @ xd).to_numpy(), (Rd @ zd).to_numpy()))
+    check(Rd.dtype == torch.float64 and xd.dtype == torch.float64
+          and c["ell"] == 2, "mixed: complex A @ real x and real R @ complex "
+          "z launched K2's c128 instantiation once each")
+    held_to(R8c @ xr, y1, torch.complex128, "mixed complex A @ real x")
+    held_to(R8 @ zh[: R8.shape[1]], y2, torch.complex128,
+            "mixed real R @ complex z")
+
+    # (c) K3 on the ridge N's pattern and at the cap ------------------------
+    Nc = complex_values(N_sc, SEED + 44)
+    nN = Nc.shape[0]
+    for S, (dt, npdt), want in ((1, CPLX[1], "resident"),
+                                (1, CPLX[0], "ell"),
+                                (4, CPLX[0], "resident")):
+        be = ht.backend_auto(S, dtype=npdt, device=dev)
+        Nd = ht.DistSparseMatrix.from_scipy(Nc, be)
+        z = ht.DistVector.from_global(zh[:nN], be)
+        plan, g, pad_to = engine_inputs(Nd, z)
+        G = plan.exchange.out_pad
+        eng = plan.engine(dt)
+        label = f"N S={S}"
+        check(eng == want, f"{label} {tag(dt)}: gathered x {G} slots = "
+              f"{G * dt.itemsize} bytes against the {cap}-byte cap: the "
+              f"{eng} engine")
+        args, kw2, kw3 = ell_call(plan, Nd, g, pad_to)
+        yp = cuda_ell.ell_spmv_plain(*args)
+        y2 = cuda_ell.ell_spmv(*args, **kw2)
+        held("ell", f"K2 {label}", dt, y2, yp)
+        if eng == "resident":
+            win = kw3["windows"]
+            y3 = k3.ell_resident_spmv(*args, **kw3)
+            held("resident", f"K3 {label} (staging "
+                 f"{'windows' if win.staged else 'the whole x'})", dt, y3, yp)
+            if plan.ell_Tpad == 0:
+                check(torch.equal(y3, y2), f"K3 {label} {tag(dt)} equals K2 "
+                      "bit for bit (the same row pass, no tail)")
+        y, c = drive(dt, lambda: (Nd @ z).to_numpy())
+        ref = rounded(Nc, npdt) @ rounded(zh[:nN], npdt)
+        held_to(ref, y, dt, f"{label} {tag(dt)} N @ z")
+        check(c[eng] == 1 and sum(c.values()) == 1,
+              f"{label} {tag(dt)}: N @ z launched {eng} once ({c})")
+        if eng == "resident":
+            bench[("resident", "N", S, dt)] = (
+                lambda a=args, k=kw3: k3.ell_resident_spmv(*a, **k),
+                lambda a=args: cuda_ell.ell_spmv_plain(*a),
+                csr_checked(Nc, dt, dev, zh[:nN], ref),
+                ell_bytes(plan, Nd, dt), 8 * Nd.nnz(),
+                lambda a=args, k=kw2: cuda_ell.ell_spmv(*a, **k))
+    # at the cap: a gathered x of exactly cap // itemsize slots (a multiple
+    # of 8: the columns plus the zero slot), staged whole by K3
+    for (dt, npdt), seed in ((CPLX[0], SEED + 45), (CPLX[1], SEED + 46)):
+        slots = (cap // dt.itemsize) // 8 * 8
+        M = complex_values(random_cols(CAP_ROWS, slots - 8, 4, seed), seed)
+        be = ht.backend_auto(1, dtype=npdt, device=dev)
+        Md = ht.DistSparseMatrix.from_scipy(M, be)
+        zs = zh[: M.shape[1]]
+        z = ht.DistVector.from_global(zs, be)
+        plan, g, pad_to = engine_inputs(Md, z)
+        G = plan.exchange.out_pad
+        args, kw2, kw3 = ell_call(plan, Md, g, pad_to)
+        unit = cuda_ell.unit_entries(plan.ell_W, dt.itemsize)
+        check(plan.engine(dt) == "resident" and G * dt.itemsize <= cap
+              and kw3["windows"].staged == 0,
+              f"at the cap {tag(dt)}: {G} slots = {G * dt.itemsize} bytes of "
+              f"the {cap}-byte cap, K3 stages the whole x ({unit} entries "
+              "a 16-byte load)")
+        yp = cuda_ell.ell_spmv_plain(*args)
+        held("resident", f"K3 at the cap, {unit}-entry 16-byte loads", dt,
+             k3.ell_resident_spmv(*args, **kw3), yp)
+        if unit > 1:     # one-entry loads: values 8 bytes off 16
+            held("resident", "K3 at the cap, one-entry loads (values "
+                 f"{dt.itemsize} bytes off 16)", dt,
+                 k3.ell_resident_spmv(misaligned(args[0]), *args[1:], **kw3),
+                 yp)
+        y, c = drive(dt, lambda: (Md @ z).to_numpy())
+        ref = rounded(M, npdt) @ rounded(zs, npdt)
+        held_to(ref, y, dt, f"at the cap {tag(dt)} A @ z")
+        check(c["resident"] == 1, f"at the cap {tag(dt)}: A @ z launched K3")
+        if dt == torch.complex128:
+            bench[("resident", "at_cap", 1, dt)] = (
+                lambda a=args, k=kw3: k3.ell_resident_spmv(*a, **k),
+                lambda a=args: cuda_ell.ell_spmv_plain(*a),
+                csr_checked(M, dt, dev, zs, ref),
+                ell_bytes(plan, Md, dt), 8 * Md.nnz(),
+                lambda a=args, k=kw2: cuda_ell.ell_spmv(*a, **k))
+
+    # (d) the complex device solver -----------------------------------------
+    solver = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        H5 = helmholtz(HELM_DEV_K)
+        n5 = H5.shape[0]
+        b5 = cplx_vec(rng, n5)
+        be = ht.backend_auto(1, dtype=np.complex128, device=dev)
+        Fh, t_host = timed_s(lambda: ht.ldlt(
+            ht.DistSparseMatrix.from_scipy(H5, be)))
+        xhost = Fh.solve(b5)
+        del Fh
+        for S, (dt, npdt) in ((1, CPLX[0]), (4, CPLX[0]), (1, CPLX[1])):
+            be = ht.backend_auto(S, dtype=npdt, device=dev)
+            A = ht.DistSparseMatrix.from_scipy(H5, be)
+            b = ht.DistVector.from_global(b5, be)
+            F, t_first = timed_s(lambda: ht.ldlt(A, method="device",
+                                                 spd=False))
+            x, c = drive(dt, lambda: F.solve(b).to_numpy())
+            Hr, br = rounded(H5, npdt), rounded(b5, npdt)
+            res = rel_res(Hr, x, br)
+            gap = float(np.linalg.norm(x - xhost) / np.linalg.norm(xhost))
+            label = f"Helmholtz({HELM_DEV_K}) S={S} {tag(dt)}"
+            check(isinstance(F, device_mf.DeviceFactorization)
+                  and F.factors[0][0][0].dtype == dt
+                  and res <= CPLX_RES[dt]
+                  and (gap <= 1e-9 or dt == torch.complex64)
+                  and c["dia"] > 0,
+                  f"{label}: ldlt(method='device', spd=False) residual "
+                  f"{res:.2e} <= {CPLX_RES[dt]:g}, {gap:.2e} from the host "
+                  f"engine's c128 solution, n_perturbed {F.n_perturbed}, K1 "
+                  f"{c['dia']} launches (refinement)")
+            eng = F.engine
+            nnzb = np.concatenate([[0], np.cumsum(A.structure.nnz_local)])
+            Avals = allgather_full(A.nzval, nnzb, be)
+            eps = 1e-10 * float(A.nzval.abs().max())
+            # one factor: it takes seconds (the recursive LDL, PERF.md)
+            solver[f"ldl_262k_S{S}_{tag(dt)}"] = {
+                "first_ldlt_s": t_first,
+                "device_ldl_factor_262k_ms":
+                    timed_ms(lambda: eng.factor(Avals, eps), 1),
+                "device_solve_262k_ms":
+                    timed_ms(lambda: F.solve(b, refine=0), 5),
+                "residual": res}
+            del F, eng, Avals
+            ht.clear_plan_cache("device_mf")
+        solver["host_ldlt_first_s_c128"] = t_host
+        # the same LDL in f64 on the real part, laplace2d(512) - 0.5 I: what
+        # the unpivoted recursive LDL costs without complex arithmetic
+        be = ht.backend_auto(1, dtype=np.float64, device=dev)
+        A = ht.DistSparseMatrix.from_scipy(H5.real.tocsr(), be)
+        F, t_first = timed_s(lambda: ht.ldlt(A, method="device", spd=False))
+        eng = F.engine
+        Avals = allgather_full(A.nzval, np.concatenate(
+            [[0], np.cumsum(A.structure.nnz_local)]), be)
+        eps = 1e-10 * float(A.nzval.abs().max())
+        solver["ldl_262k_S1_f64"] = {
+            "first_ldlt_s": t_first,
+            "device_ldl_factor_262k_ms":
+                timed_ms(lambda: eng.factor(Avals, eps), 1),
+            "device_solve_262k_ms": timed_ms(
+                lambda: F.solve(ht.DistVector.from_global(b5.real, be),
+                                refine=0), 5)}
+        del F, eng, Avals
+        ht.clear_plan_cache("device_mf")
+        # LU: laplace2d(256) with unsymmetric complex values on its own
+        # pattern, permuted symmetrically so its SpMV plan is K2's
+        r = np.random.default_rng(SEED + 47)
+        Lu = laplace2d(LU_K)
+        n2 = Lu.shape[0]
+        Lu = sp.csr_matrix((Lu.data * (1.0 + 0.2 * r.random(Lu.nnz))
+                            + 0.1j * r.standard_normal(Lu.nnz), Lu.indices,
+                            Lu.indptr), shape=Lu.shape)
+        perm = r.permutation(n2)
+        P = Lu[perm][:, perm].tocsr()
+        P.sort_indices()
+        b2 = cplx_vec(rng, n2)
+        c128 = torch.complex128
+        for S in (1, 4):
+            be = ht.backend_auto(S, dtype=np.complex128, device=dev)
+            Pd = ht.DistSparseMatrix.from_scipy(P, be)
+            bd = ht.DistVector.from_global(b2, be)
+            eng_p = spmv_mod.get_spmv_plan(Pd, bd).engine(c128)
+            F, t_first = timed_s(lambda: ht.lu(Pd, method="device"))
+            (x, xt), c = drive(c128, lambda: (
+                F.solve(bd).to_numpy(),
+                F.solve(bd, transpose=True).to_numpy()))
+            res, rest = rel_res(P, x, b2), rel_res(P.T, xt, b2)
+            check(isinstance(F, device_mf.DeviceFactorization)
+                  and eng_p == "ell" and res <= 1e-10 and rest <= 1e-10
+                  and c["ell"] > 0,
+                  f"LU permuted laplace2d({LU_K}) + complex perturbation "
+                  f"S={S} c128: residual {res:.2e}, transposed {rest:.2e} "
+                  f"<= 1e-10 with refinement, K2 ({eng_p} engine) "
+                  f"{c['ell']} launches")
+            solver[f"lu_65k_S{S}_c128"] = {
+                "first_lu_s": t_first,
+                "device_solve_ms": timed_ms(lambda: F.solve(bd, refine=0), 5)}
+            del F
+        # routing: a solver="device" backend through ht.solve twice, the
+        # second time with new values on the same pattern
+        bed = ht.backend_auto(1, dtype=np.complex128, device=dev,
+                              solver="device")
+        Pd = ht.DistSparseMatrix.from_scipy(P, bed)
+        bd = ht.DistVector.from_global(b2, bed)
+        ht.clear_plan_cache("backslash")
+        x1 = ht.solve(Pd, bd).to_numpy()
+        cache = ht.BackslashCache._cache()
+        F1 = next(iter(cache.values()))
+        s2 = 1.5 - 0.5j
+        Pd2 = Pd * s2
+        x2, c = drive(c128, lambda: ht.solve(Pd2, bd).to_numpy())
+        res1, res2 = rel_res(P, x1, b2), rel_res(s2 * P, x2, b2)
+        check(isinstance(F1, device_mf.DeviceFactorization)
+              and len(cache) == 1 and next(iter(cache.values())) is F1
+              and F1.A is Pd2 and max(res1, res2) <= 1e-10 and c["ell"] > 0,
+              f"solver='device' c128: ht.solve took the device engine, new "
+              f"values a refactorize-only hit (residuals {res1:.2e}, "
+              f"{res2:.2e}; K2 {c['ell']} launches)")
+        ht.clear_plan_cache("backslash")
+        ht.clear_plan_cache("device_mf")
+
+    # (e) times -------------------------------------------------------------
+    timed = {}
+    for key, (fk, fp, fl, nbytes, flops, extra) in bench.items():
+        kname, name, S, dt = key
+        t = timer.turns(fk, fp, fl, extra)
+        label = f"{kname} {name} S={S} {tag(dt)}"
+        if kname == "dia" and extra is not None:
+            label += f" (former route, four real K1 products: {t[3]:.4f} ms)"
+        elif extra is not None:
+            label += f" (K2 {t[3]:.4f} ms)"
+        bms, by = case_line(label, t[0], t[1], t[2], nbytes, flops, dt, card)
+        if dt == torch.complex128 and kname not in timed:
+            timed[kname] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                            "bound_ms": bms, "bound_by": by,
+                            "case": f"{name} S={S} c128"}
+            if kname == "dia":
+                timed[kname]["former_route_ms"] = t[3]
+    p9 = times.get("phase9", {}).get("chol_262k_S1", {})
+    for k, v in solver.items():
+        print(f"  {k}: {json.dumps(v)}  [{card}]", flush=True)
+    print(f"  f64 beside them (phase 9, laplace2d({DEV_K}) S=1 Cholesky): "
+          f"factor {p9.get('device_chol_factor_262k_ms')} ms, solve "
+          f"{p9.get('device_solve_262k_ms')} ms  [{card}]", flush=True)
+    times["phase11"] = solver
+    return launches, errs, timed
 
 
 def main():
@@ -1484,6 +1943,17 @@ def main():
     print(f"phase 10 launches: {launches10}; phase 10 took {t10:.1f} s  "
           f"[{card}]", flush=True)
 
+    # ---- phase 11: complex values (public API, c64 and c128) ----------------
+    print(f"phase 11: complex values, K1 on Helmholtz({HELM_K}), K2 on the "
+          f"random and power-law matrices, K3 on N, the complex device LDL "
+          f"and LU (public API, c64 and c128) on {card}", flush=True)
+    (launches11, errs11, timed11), t11 = timed_s(lambda: phase11_complex(
+        ht, dev, R8, PL, N_sc, timer, card, times))
+    print(f"phase 11 launches (drives): {launches11}; phase 11 took "
+          f"{t11:.1f} s  [{card}]", flush=True)
+    check(all(v > 0 for per in launches11.values() for v in per.values()),
+          "phase 11 launched K1, K2 and K3 each in c64 and in c128")
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -1548,7 +2018,23 @@ def main():
          "launches": launches7["kpayload"], "max_abs_err": kp["err"],
          **probe(kp, kp["bound_bytes"], k5_lib_ms),
          "sector_floor_ms": kp["sector_floor_ms"]},
-    ]}
+    ] + [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "dtypes": ["complex64", "complex128"],
+         "launches": sum(launches11[key].values()),
+         "launches_by_dtype": launches11[key],
+         "max_abs_err": max(errs11[key].values()),
+         "max_abs_err_by_dtype": errs11[key], **timed11[key]}
+        for key, name, source, replaces in (
+            ("dia", "dia_spmv complex (K1: dia_vec in c64, c128)",
+             "hpclinalg_torch/csrc/dia_spmv.cu",
+             "hpclinalg/ops/pallas_dia.py:60"),
+            ("ell", "ell_spmv complex (K2: ell_rows, ell_tail in c64, c128)",
+             "hpclinalg_torch/csrc/ell_spmv.cu",
+             "hpclinalg/ops/pallas_shuffle.py:321"),
+            ("resident", "ell_resident_spmv complex (K3 in c64, c128)",
+             "hpclinalg_torch/csrc/ell_resident_spmv.cu",
+             "hpclinalg/ops/pallas_csr.py:123"))]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,13 +37,22 @@
 //     needs dval, g and y 16-byte aligned, Lrow and g's shard stride
 //     multiples of W; dia_scalar (W = 1) takes every other table, with
 //     element copies into the same window. The wrapper picks one by those
-//     facts (ops/cuda_dia.py dia_vector_width).
-// Each term is rounded as product, then sum (no fused multiply-add), in
-// offset order: the arithmetic of the plain twin and of _dia_exec's body,
-// so both kernels agree with the twin bit for bit.
+//     facts (ops/cuda_dia.py dia_kernel).
+// Each real term is rounded as product, then sum (no fused multiply-add),
+// in offset order: the arithmetic of the plain twin and of _dia_exec's
+// body, so both kernels agree with the twin bit for bit.
+//
+// Complex values (c64, c128 in torch's interleaved layout, csrc/values.cuh)
+// run through the same two kernels in one launch: a thread still holds 16
+// bytes of rows (2 c64 rows, 1 c128 row), and each term is four FMAs into
+// the row's re and im accumulators, so a complex result agrees with the
+// twin to rounding, not bit for bit. A c128 row is a whole 16-byte unit, so
+// dia_vec and dia_scalar walk the same rows and the wrapper runs dia_vec.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "values.cuh"
 
 #define DIA_MAX_OFFSETS 64
 #define DIA_THREADS 256   // a block's threads at most
@@ -52,7 +61,7 @@
 // (dia_scalar), so both kernels walk the same tiles; and the diagonals
 // whose table loads a thread issues before its first sum
 template <typename T>
-constexpr int kRows = 16 / (int)sizeof(T);
+constexpr int kRows = kVec<T>;
 constexpr int kChunk = 10;
 
 // The pattern and its window, built once per pattern by the wrapper. Piece p
@@ -67,12 +76,19 @@ struct DiaLayout {
   int base[DIA_MAX_OFFSETS];
 };
 
-// acc + a*b with two roundings; the intrinsics are never contracted
-__device__ __forceinline__ float mul_add_rn(float acc, float a, float b) {
+// one term acc + a*b: in reals with two roundings (the intrinsics are
+// never contracted), in complex as four FMAs (values.cuh mad)
+__device__ __forceinline__ float term(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));
 }
-__device__ __forceinline__ double mul_add_rn(double acc, double a, double b) {
+__device__ __forceinline__ double term(double acc, double a, double b) {
   return __dadd_rn(acc, __dmul_rn(a, b));
+}
+__device__ __forceinline__ c64 term(c64 acc, c64 a, c64 b) {
+  return mad(acc, a, b);
+}
+__device__ __forceinline__ c128 term(c128 acc, c128 a, c128 b) {
+  return mad(acc, a, b);
 }
 
 // W elements at p, read and written with the streaming hint
@@ -84,6 +100,18 @@ __device__ __forceinline__ void ldcs(const double* p, double (&v)[2]) {
   const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
   v[0] = q.x, v[1] = q.y;
 }
+__device__ __forceinline__ void ldcs(const c64* p, c64 (&v)[2]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = c64(q.x, q.y), v[1] = c64(q.z, q.w);
+}
+__device__ __forceinline__ void ldcs(const c64* p, c64 (&v)[1]) {
+  const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
+  v[0] = c64(q.x, q.y);
+}
+__device__ __forceinline__ void ldcs(const c128* p, c128 (&v)[1]) {
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = c128(q.x, q.y);
+}
 template <typename T>
 __device__ __forceinline__ void ldcs(const T* p, T (&v)[1]) {
   v[0] = __ldcs(p);
@@ -93,6 +121,16 @@ __device__ __forceinline__ void stcs(float* p, const float (&v)[4]) {
 }
 __device__ __forceinline__ void stcs(double* p, const double (&v)[2]) {
   __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+__device__ __forceinline__ void stcs(c64* p, const c64 (&v)[2]) {
+  __stcs(reinterpret_cast<float4*>(p),
+         make_float4(v[0].re, v[0].im, v[1].re, v[1].im));
+}
+__device__ __forceinline__ void stcs(c64* p, const c64 (&v)[1]) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(v[0].re, v[0].im));
+}
+__device__ __forceinline__ void stcs(c128* p, const c128 (&v)[1]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0].re, v[0].im));
 }
 template <typename T>
 __device__ __forceinline__ void stcs(T* p, const T (&v)[1]) {
@@ -174,7 +212,7 @@ __device__ __forceinline__ void dia_tile(const T* __restrict__ dval,
         const int r = (u * blockDim.x + threadIdx.x) * W;
 #pragma unroll
         for (int e = 0; e < W; ++e)
-          acc[u][e] = mul_add_rn(acc[u][e], v[k][u][e], xw[r + e]);
+          acc[u][e] = term(acc[u][e], v[k][u][e], xw[r + e]);
       }
     }
   }
@@ -244,17 +282,16 @@ static int launch_kernel(const void* dval, const void* g, void* y, int64_t S,
 template <typename T>
 static int launch(const void* dval, const void* g, void* y, int64_t S,
                   int64_t Lrow, int64_t gcols, int64_t g_stride,
-                  const void* layout, int threads, int vec, int64_t smem,
+                  const void* layout, int threads, int vector, int64_t smem,
                   void* stream) {
   constexpr int V = kRows<T>;
   const DiaLayout& lay = *(const DiaLayout*)layout;
   if (lay.n < 1 || lay.n > DIA_MAX_OFFSETS || lay.npieces < 1 ||
       lay.npieces > DIA_MAX_OFFSETS || S < 1 || S > 65535 || Lrow < 1 ||
-      threads < 32 || threads > DIA_THREADS || threads % 32 || smem < 0 ||
-      (vec != 1 && vec != V))
+      threads < 32 || threads > DIA_THREADS || threads % 32 || smem < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 1)
+  if (!vector)
     return launch_kernel<T, false>(dval, g, y, S, Lrow, gcols, g_stride, lay,
                                    threads, (size_t)smem, st);
   if ((uintptr_t)dval % 16 || (uintptr_t)g % 16 || (uintptr_t)y % 16 ||
@@ -267,24 +304,25 @@ static int launch(const void* dval, const void* g, void* y, int64_t S,
 extern "C" {
 
 // layout: a host DiaLayout (copied into the launch); threads: a block's
-// threads (a tile is threads * 16 / sizeof(T) rows); vec: 1 for
-// dia_scalar, 16 / sizeof(T) for dia_vec; smem: the window's bytes.
-// Returns cudaGetLastError() after the launch.
-int dia_spmv_f32(const void* dval, const void* g, void* y, int64_t S,
-                 int64_t Lrow, int64_t gcols, int64_t g_stride,
-                 const void* layout, int threads, int vec, int64_t smem,
-                 void* stream) {
-  return launch<float>(dval, g, y, S, Lrow, gcols, g_stride, layout, threads,
-                       vec, smem, stream);
-}
+// threads (a tile is threads * 16 / sizeof(T) rows); vector: nonzero runs
+// dia_vec (16-byte accesses: dval, g and y 16-byte aligned, Lrow and
+// g_stride multiples of 16 / sizeof(T) rows), 0 runs dia_scalar; smem: the
+// window's bytes. The _c64 / _c128 entry points take torch's interleaved
+// complex64 / complex128 values, x and y. Returns cudaGetLastError() after
+// the launch.
+#define DIA_SPMV_ENTRY(NAME, T)                                              \
+  int NAME(const void* dval, const void* g, void* y, int64_t S,             \
+           int64_t Lrow, int64_t gcols, int64_t g_stride,                   \
+           const void* layout, int threads, int vector, int64_t smem,       \
+           void* stream) {                                                  \
+    return launch<T>(dval, g, y, S, Lrow, gcols, g_stride, layout, threads, \
+                     vector, smem, stream);                                 \
+  }
 
-int dia_spmv_f64(const void* dval, const void* g, void* y, int64_t S,
-                 int64_t Lrow, int64_t gcols, int64_t g_stride,
-                 const void* layout, int threads, int vec, int64_t smem,
-                 void* stream) {
-  return launch<double>(dval, g, y, S, Lrow, gcols, g_stride, layout, threads,
-                        vec, smem, stream);
-}
+DIA_SPMV_ENTRY(dia_spmv_f32, float)
+DIA_SPMV_ENTRY(dia_spmv_f64, double)
+DIA_SPMV_ENTRY(dia_spmv_c64, c64)
+DIA_SPMV_ENTRY(dia_spmv_c128, c128)
 
 // The opt-in maximum of dynamic shared memory a block may take on device
 // (the kernels have no static shared memory); a negative cudaError_t on

@@ -3,8 +3,8 @@
 //
 // Row pass. A group of TPR = 2^tpr_log2 neighbouring threads shares a row;
 // each lane reads units of VEC consecutive entries (VEC = 16 bytes of
-// values, 2 entries in f64 and 4 in f32, with their column indices in one
-// load; VEC = 1 when W is not a multiple), units lane, lane + TPR, ... of
+// values, kVec<T> entries, with their column indices in one load; VEC = 1
+// when W is not a multiple, and always in c128), units lane, lane + TPR, ... of
 // the row, so a warp's load covers consecutive bytes, and stops at the
 // row's length, so the padding of the (Lrow, W) table is never fetched.
 // The loop is software-pipelined: the table loads of a lane's next unit are
@@ -13,6 +13,12 @@
 // from the row lengths (ops/cuda_ell.py lanes_for), so short rows share a
 // warp and long rows take more lanes. The row sum is a butterfly of
 // shuffles inside the group, so K2 and K3 sum a row in the same order.
+//
+// Values. T is float, double, c64 or c128 (csrc/values.cuh): a unit is 16
+// bytes of values in every type (4 f32, 2 f64, 2 c64, 1 c128 entries), and
+// a complex entry is multiplied and added as four FMAs into its re and im
+// accumulators; its shuffles and the tail's atomics go a component at a
+// time (there is no complex atomicAdd).
 //
 // Tail. Entries of the COO tail come sorted by row within a shard (the plan
 // emits them row by row). A thread takes kTailPerThread consecutive entries
@@ -29,7 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr unsigned kFull = 0xffffffffu;
+#include "values.cuh"
+
 constexpr int kRowThreads = 256;    // threads a block of the row kernels
 constexpr int kRowBlocksPerSM = 4;  // register budget: 64 a thread
 constexpr int kTailThreads = 256;
@@ -41,28 +48,28 @@ struct Unit {
   T v[VEC];
 };
 
-// 16 bytes of values a unit: 2 entries in f64, 4 in f32
-template <typename T>
-constexpr int kVec = 16 / sizeof(T);
+// the column indices of a unit of 2 or 4 entries, in one load
+__device__ __forceinline__ void ldg_cols(const int* p, int (&c)[2]) {
+  const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+  c[0] = q.x; c[1] = q.y;
+}
+__device__ __forceinline__ void ldg_cols(const int* p, int (&c)[4]) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+  c[0] = q.x; c[1] = q.y; c[2] = q.z; c[3] = q.w;
+}
 
+// a unit: one entry, or 16 bytes of values with their column indices (a
+// c128 unit is one entry, so it takes the first branch, a 16-byte load)
 template <typename T, int VEC>
 __device__ __forceinline__ void load_unit(Unit<T, VEC>& u, const T* vp,
                                           const int* cp) {
   if constexpr (VEC == 1) {
     u.c[0] = __ldg(cp);
-    u.v[0] = __ldg(vp);
-  } else if constexpr (sizeof(T) == 8) {
-    static_assert(VEC == 2, "f64 units are 1 or 2 entries");
-    const int2 c = __ldg(reinterpret_cast<const int2*>(cp));
-    const double2 a = __ldg(reinterpret_cast<const double2*>(vp));
-    u.c[0] = c.x; u.c[1] = c.y;
-    u.v[0] = a.x; u.v[1] = a.y;
+    u.v[0] = ldg1(vp);
   } else {
-    static_assert(VEC == 4, "f32 units are 1 or 4 entries");
-    const int4 c = __ldg(reinterpret_cast<const int4*>(cp));
-    const float4 a = __ldg(reinterpret_cast<const float4*>(vp));
-    u.c[0] = c.x; u.c[1] = c.y; u.c[2] = c.z; u.c[3] = c.w;
-    u.v[0] = a.x; u.v[1] = a.y; u.v[2] = a.z; u.v[3] = a.w;
+    static_assert(VEC == kVec<T>, "a unit is one entry or 16 bytes");
+    ldg_cols(cp, u.c);
+    ldg16(vp, u.v);
   }
 }
 
@@ -82,7 +89,7 @@ struct GlobalX {
   const T* g;
   int64_t gcols;
   __device__ __forceinline__ T operator()(int c) const {
-    return c < gcols ? __ldg(g + c) : T(0);
+    return c < gcols ? ldg1(g + c) : T(0);
   }
 };
 
@@ -126,14 +133,14 @@ __device__ __forceinline__ void ell_row_pass(
     for (int i = 0; i < VEC; ++i)
       xv[i] = (e + i < len) ? xread(u.c[i]) : T(0);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc += u.v[i] * xv[i];
+    for (int i = 0; i < VEC; ++i) acc = mad(acc, u.v[i], xv[i]);
     u = un;
     e = en;
   }
   // every lane of the warp reaches the shuffles (the loop above only
   // diverges inside the warp and reconverges here)
   for (int o = (1 << tpr_log2) >> 1; o > 0; o >>= 1)
-    acc += __shfl_xor_sync(kFull, acc, o);
+    acc = acc + shfl_xor(acc, o);
   if (lane == 0 && row < Lrow) ys[row] = acc;
 }
 
@@ -168,20 +175,14 @@ ell_tail(const T* __restrict__ tvals, const int* __restrict__ trows,
         r[4 * q] = a.x; r[4 * q + 1] = a.y; r[4 * q + 2] = a.z; r[4 * q + 3] = a.w;
         c[4 * q] = b.x; c[4 * q + 1] = b.y; c[4 * q + 2] = b.z; c[4 * q + 3] = b.w;
       }
-      if constexpr (sizeof(T) == 8) {
-        const double2* vp = reinterpret_cast<const double2*>(tvals + k0);
+      constexpr int V = kVec<T>;
+      static_assert(E % V == 0, "a thread's tail values are whole units");
 #pragma unroll
-        for (int q = 0; q < E / 2; ++q) {
-          const double2 a = __ldg(vp + q);
-          v[2 * q] = a.x; v[2 * q + 1] = a.y;
-        }
-      } else {
-        const float4* vp = reinterpret_cast<const float4*>(tvals + k0);
+      for (int q = 0; q < E / V; ++q) {
+        T a[V];
+        ldg16(tvals + k0 + q * V, a);
 #pragma unroll
-        for (int q = 0; q < E / 4; ++q) {
-          const float4 a = __ldg(vp + q);
-          v[4 * q] = a.x; v[4 * q + 1] = a.y; v[4 * q + 2] = a.z; v[4 * q + 3] = a.w;
-        }
+        for (int i = 0; i < V; ++i) v[q * V + i] = a[i];
       }
     } else {
 #pragma unroll
@@ -194,18 +195,19 @@ ell_tail(const T* __restrict__ tvals, const int* __restrict__ trows,
     T p[E];
 #pragma unroll
     for (int i = 0; i < E; ++i)
-      p[i] = (r[i] < Lrow && c[i] < gcols) ? v[i] * __ldg(gs + c[i]) : T(0);
+      p[i] = (r[i] < Lrow && c[i] < gcols) ? mul(v[i], ldg1(gs + c[i]))
+                                              : T(0);
     // runs inside the thread: all but the last are added here
     int key = r[0];
     T val = p[0];
 #pragma unroll
     for (int i = 1; i < E; ++i) {
       if (r[i] != key) {
-        if (key < Lrow) atomicAdd(ys + key, val);
+        if (key < Lrow) atomic_add(ys + key, val);
         key = r[i];
         val = p[i];
       } else {
-        val += p[i];
+        val = val + p[i];
       }
     }
     // segmented inclusive scan of the last runs over the warp's lanes
@@ -214,15 +216,15 @@ ell_tail(const T* __restrict__ tvals, const int* __restrict__ trows,
     int hf = head;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const T vup = __shfl_up_sync(kFull, val, o);
+      const T vup = shfl_up(val, o);
       const int hup = __shfl_up_sync(kFull, hf, o);
       if (lane >= o) {
-        if (!hf) val += vup;
+        if (!hf) val = val + vup;
         hf |= hup;
       }
     }
     const int next_head = __shfl_down_sync(kFull, head, 1);
-    if ((lane == 31 || next_head) && key < Lrow) atomicAdd(ys + key, val);
+    if ((lane == 31 || next_head) && key < Lrow) atomic_add(ys + key, val);
   }
 }
 

@@ -32,7 +32,11 @@
 // rows' table loads are in flight, and walks its tiles on it. Rows are
 // summed by K2's row pass, so without a tail K3 and K2 agree bit for bit;
 // the tail is K2's segmented tail kernel, whose atomics sum in no fixed
-// order.
+// order. Values are f32, f64, c64 or c128 (csrc/values.cuh), one
+// instantiation each: a staged complex window takes twice the bytes of its
+// real parts' (a c128 slot is 16 bytes), so the plan stages windows and
+// picks this engine by the complex item size (ops/cuda_ell_resident.py
+// make_windows, ops/spmv.py SpMVPlan.engine).
 
 #include "ell_common.cuh"
 
@@ -78,7 +82,7 @@ template <typename T>
 __device__ __forceinline__ int stage_window(T* buf, const T* __restrict__ gs,
                                             int lo, int hi, int64_t gcols,
                                             bool aligned) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = kVec<T>;
   const int a = lo & ~(V - 1);
   const int b = (hi + V - 1) & ~(V - 1);
   for (int c = a + (int)threadIdx.x * V; c < b; c += (int)blockDim.x * V) {
@@ -215,7 +219,7 @@ static int launch_rows(const void* vals, const void* cols, const void* rowlen,
   const int threads = win_cap ? kRowThreads : kWholeThreads;
   const int64_t tile = (int64_t)(threads >> tpr_log2) * passes;
   const int64_t ntiles = (Lrow + tile - 1) / tile;
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = kVec<T>;
   const size_t smem = (size_t)(win_cap ? 2 * (int64_t)win_cap
                                        : (G + V - 1) / V * V) * sizeof(T);
   int sms = 0, occ = 0;
@@ -284,17 +288,23 @@ static int static_smem(int* out) {
 extern "C" {
 
 // The largest staging in bytes a launch may use on `device`: the opt-in
-// maximum of dynamic shared memory per block, less the kernel's own static
-// shared memory. Returns a negative cudaError_t on failure.
+// maximum of dynamic shared memory per block, less the largest static
+// shared memory of the kernel's instantiations. Returns a negative
+// cudaError_t on failure.
 int64_t ell_resident_smem_cap(int device) {
-  int optin = 0, s32 = 0, s64 = 0;
+  int optin = 0, worst = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return -(int64_t)e;
-  int rc = static_smem<float>(&s32);
-  if (rc == 0) rc = static_smem<double>(&s64);
-  if (rc != 0) return -(int64_t)rc;
-  return (int64_t)optin - (s32 > s64 ? s32 : s64);
+  int (*const each[])(int*) = {static_smem<float>, static_smem<double>,
+                               static_smem<c64>, static_smem<c128>};
+  for (auto f : each) {
+    int s = 0;
+    const int rc = f(&s);
+    if (rc != 0) return -(int64_t)rc;
+    if (s > worst) worst = s;
+  }
+  return (int64_t)optin - worst;
 }
 
 // rowlen: (S, Lrow) stored row lengths. windows: (S, ntiles, 2) int32
@@ -302,31 +312,24 @@ int64_t ell_resident_smem_cap(int device) {
 // rows), used when win_cap > 0 (elements per buffer, two buffers);
 // win_cap == 0 stages the whole gathered x, G slots (slots gcols..G-1 stage
 // as 0). aligned != 0: g and its shard stride are 16-byte aligned. Tpad == 0
-// means no tail. Returns cudaGetLastError() after the launches.
-int ell_resident_spmv_f32(const void* vals, const void* cols,
-                          const void* rowlen, const void* windows,
-                          const void* tvals, const void* trows,
-                          const void* tgidx, const void* g, void* y, int64_t S,
-                          int64_t Lrow, int W, int64_t Tpad, int64_t G,
-                          int64_t gcols, int64_t g_stride, int tpr, int vec,
-                          int64_t tile_rows, int win_cap, int aligned,
-                          void* stream) {
-  return launch<float>(vals, cols, rowlen, windows, tvals, trows, tgidx, g, y,
-                       S, Lrow, W, Tpad, G, gcols, g_stride, tpr, vec,
-                       tile_rows, win_cap, aligned, stream);
-}
+// means no tail. The _c64 / _c128 entry points take torch's interleaved
+// complex64 / complex128 values, x and y. Returns cudaGetLastError() after
+// the launches.
+#define ELL_RESIDENT_ENTRY(NAME, T)                                           \
+  int NAME(const void* vals, const void* cols, const void* rowlen,           \
+           const void* windows, const void* tvals, const void* trows,        \
+           const void* tgidx, const void* g, void* y, int64_t S,             \
+           int64_t Lrow, int W, int64_t Tpad, int64_t G, int64_t gcols,      \
+           int64_t g_stride, int tpr, int vec, int64_t tile_rows,            \
+           int win_cap, int aligned, void* stream) {                         \
+    return launch<T>(vals, cols, rowlen, windows, tvals, trows, tgidx, g, y, \
+                     S, Lrow, W, Tpad, G, gcols, g_stride, tpr, vec,         \
+                     tile_rows, win_cap, aligned, stream);                   \
+  }
 
-int ell_resident_spmv_f64(const void* vals, const void* cols,
-                          const void* rowlen, const void* windows,
-                          const void* tvals, const void* trows,
-                          const void* tgidx, const void* g, void* y, int64_t S,
-                          int64_t Lrow, int W, int64_t Tpad, int64_t G,
-                          int64_t gcols, int64_t g_stride, int tpr, int vec,
-                          int64_t tile_rows, int win_cap, int aligned,
-                          void* stream) {
-  return launch<double>(vals, cols, rowlen, windows, tvals, trows, tgidx, g, y,
-                        S, Lrow, W, Tpad, G, gcols, g_stride, tpr, vec,
-                        tile_rows, win_cap, aligned, stream);
-}
+ELL_RESIDENT_ENTRY(ell_resident_spmv_f32, float)
+ELL_RESIDENT_ENTRY(ell_resident_spmv_f64, double)
+ELL_RESIDENT_ENTRY(ell_resident_spmv_c64, c64)
+ELL_RESIDENT_ENTRY(ell_resident_spmv_c128, c128)
 
 }  // extern "C"

@@ -29,8 +29,11 @@
 // 16-byte loads of values where the row width allows, groups sized from
 // the row lengths so short rows share a warp, and a stop at each row's
 // length; the tail sums runs of one row inside a warp before its one
-// atomicAdd (native for f64 on sm_90), so its summation order is not
-// deterministic. The gather mode stays one slot a thread: on the H100
+// atomicAdd (native for f64 on sm_90; a complex value adds its two
+// components with one atomic each), so its summation order is not
+// deterministic. Values are f32, f64, c64 or c128 (csrc/values.cuh), each
+// type one instantiation of the same kernels: a complex product is one
+// launch on the interleaved values, not four real ones. The gather mode stays one slot a thread: on the H100
 // every design with more slots a thread (4 or 8, with 16-byte loads of the
 // sources and 16-byte stores) measured slower at 8*10^6 random slots, where
 // the random x reads bound it (PERF.md).
@@ -124,26 +127,26 @@ extern "C" {
 // rowlen: (S, Lrow) stored row lengths. vec is 1 or 16 / sizeof(T) entries
 // a load (then W % vec == 0 and the tables 16-byte aligned); Tpad == 0
 // means no tail (tvals/trows/tgidx are then not read), else Tpad % 8 == 0
-// and the tail tables 16-byte aligned.
+// and the tail tables 16-byte aligned. The _c64 / _c128 entry points take
+// torch's interleaved complex64 / complex128 values, x and y.
 // Returns cudaGetLastError() after the launches.
-int ell_spmv_f32(const void* vals, const void* cols, const void* rowlen,
-                 const void* tvals, const void* trows, const void* tgidx,
-                 const void* g, void* y, int64_t S, int64_t Lrow, int W,
-                 int64_t Tpad, int64_t gcols, int64_t g_stride, int tpr,
-                 int vec, void* stream) {
-  return launch_ell<float>(vals, cols, rowlen, tvals, trows, tgidx, g, y, S,
-                           Lrow, W, Tpad, gcols, g_stride, tpr, vec, stream);
-}
+#define ELL_SPMV_ENTRY(NAME, T)                                              \
+  int NAME(const void* vals, const void* cols, const void* rowlen,          \
+           const void* tvals, const void* trows, const void* tgidx,         \
+           const void* g, void* y, int64_t S, int64_t Lrow, int W,          \
+           int64_t Tpad, int64_t gcols, int64_t g_stride, int tpr, int vec, \
+           void* stream) {                                                  \
+    return launch_ell<T>(vals, cols, rowlen, tvals, trows, tgidx, g, y, S,  \
+                         Lrow, W, Tpad, gcols, g_stride, tpr, vec, stream); \
+  }
 
-int ell_spmv_f64(const void* vals, const void* cols, const void* rowlen,
-                 const void* tvals, const void* trows, const void* tgidx,
-                 const void* g, void* y, int64_t S, int64_t Lrow, int W,
-                 int64_t Tpad, int64_t gcols, int64_t g_stride, int tpr,
-                 int vec, void* stream) {
-  return launch_ell<double>(vals, cols, rowlen, tvals, trows, tgidx, g, y, S,
-                            Lrow, W, Tpad, gcols, g_stride, tpr, vec, stream);
-}
+ELL_SPMV_ENTRY(ell_spmv_f32, float)
+ELL_SPMV_ENTRY(ell_spmv_f64, double)
+ELL_SPMV_ENTRY(ell_spmv_c64, c64)
+ELL_SPMV_ENTRY(ell_spmv_c128, c128)
 
+// the gather mode moves reals only: a complex payload crosses it as real
+// pairs (parallel/exchange.py)
 int gather_f32(const void* x, const void* src, void* xe, int64_t S, int64_t D,
                int64_t x_stride, void* stream) {
   return launch_gather<float>(x, src, xe, S, D, x_stride, stream);

@@ -12,11 +12,14 @@ side: the function of the JAX package's ``_dia_exec``
 
 A CUDA tensor goes to the kernels in ``csrc/dia_spmv.cu``; a CPU tensor
 goes to ``dia_spmv_plain``. There is no fallback from one to the other.
-Which kernel runs is decided by ``dia_vector_width`` from the operands'
-alignment: the 16-byte kernel ``dia_vec`` or the scalar ``dia_scalar``.
-Both stage the tile's x window that ``dia_layout`` lays out for the
-pattern; ``dia_spmv_split_plain`` models the choice, the window and each
-kernel's walk over y on the CPU.
+Which kernel runs is decided by ``dia_kernel`` from the operands'
+alignment: the 16-byte kernel ``dia_vec`` or the scalar ``dia_scalar``
+(``dia_vector_width`` rows an access). Both stage the tile's x window that
+``dia_layout`` lays out for the pattern; ``dia_spmv_split_plain`` models
+the choice, the window and each kernel's walk over y on the CPU. The
+kernels take float32, float64, complex64 and complex128 (``KERNEL_DTYPES``),
+a complex product in one launch on torch's interleaved values; a c128 row
+is one 16-byte unit, so c128 runs ``dia_vec`` a row an access.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ import torch
 # that the CPU tests choose what the card would.
 H100_SMEM_CAP = 232448
 DIA_MAX_OFFSETS = 64
+# The value types of the SpMV kernels K1-K3 and the suffix of each type's
+# entry point (csrc/values.cuh)
+KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64",
+                 torch.complex64: "c64", torch.complex128: "c128"}
 # a block's threads; a pattern whose window does not fit the shared memory
 # at this many takes fewer (dia_layout)
 THREADS = 256
@@ -123,19 +130,27 @@ def dia_layout(offsets: tuple, esize: int, cap: int) -> DiaLayout:
                      f"{cap} bytes of shared memory")
 
 
-def dia_vector_width(dval: torch.Tensor, g: torch.Tensor,
-                     y: torch.Tensor) -> int:
-    """The rows of one 16-byte access of the kernel that runs: 16 //
-    itemsize (``dia_vec``) when dval, g and y start on a 16-byte boundary
-    and Lrow and g's shard stride are multiples of that, so every row of
-    the table, of y and every shard of g is aligned; else 1
-    (``dia_scalar``). The window's pieces start on whole 16-byte units
-    whatever the offsets, so the offsets do not enter."""
+def dia_kernel(dval: torch.Tensor, g: torch.Tensor, y: torch.Tensor) -> str:
+    """The kernel that runs: ``dia_vec`` (16-byte accesses) when dval, g
+    and y start on a 16-byte boundary and Lrow and g's shard stride are
+    multiples of the rows of 16 bytes, so every row of the table, of y and
+    every shard of g is aligned; else ``dia_scalar``. The window's pieces
+    start on whole 16-byte units whatever the offsets, so the offsets do
+    not enter."""
     w = 16 // dval.element_size()
     if all(t.data_ptr() % 16 == 0 for t in (dval, g, y)) \
             and dval.shape[2] % w == 0 and g.stride(0) % w == 0:
-        return w
-    return 1
+        return "dia_vec"
+    return "dia_scalar"
+
+
+def dia_vector_width(dval: torch.Tensor, g: torch.Tensor,
+                     y: torch.Tensor) -> int:
+    """The rows of one access of the kernel that runs: 16 // itemsize
+    (``dia_vec``: 4 f32, 2 f64 or c64, 1 c128 row) or 1 (``dia_scalar``;
+    ``dia_kernel``)."""
+    return 16 // dval.element_size() \
+        if dia_kernel(dval, g, y) == "dia_vec" else 1
 
 
 def dia_spmv_split_plain(dval: torch.Tensor, g: torch.Tensor, offsets,
@@ -193,7 +208,8 @@ def _lib():
 
     lib = load_kernel_lib("dia_spmv")
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for fn in (lib.dia_spmv_f32, lib.dia_spmv_f64):
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"dia_spmv_{suffix}")
         fn.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp, ci, ci, i64, vp]
         fn.restype = ci
     lib.dia_spmv_smem_cap.argtypes = [ci]
@@ -231,7 +247,10 @@ def complex_products(fn, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``fn(vals, x)`` of a product linear in each operand, for complex
     operands, as real products of their parts: (vr + i vi)(xr + i xi) =
     (vr xr - vi xi) + i (vr xi + vi xr). Two calls of ``fn`` when one
-    operand is complex, four when both are."""
+    operand is complex, four when both are. No kernel runs this way (each
+    takes complex in one launch): the tests hold the complex plain versions
+    to it, and chip_smoke.py times the real K1 through it beside the
+    complex one."""
     def parts(t):
         return (t.real, t.imag) if t.is_complex() else (t, None)
 
@@ -249,20 +268,17 @@ def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
              bias_hi: int, pad_to: int = 0) -> torch.Tensor:
     """K1. dval: (S, O, Lrow) contiguous; g: (S, G) with unit column
     stride; offsets: O strictly ascending ints. Runs the kernel
-    ``dia_vector_width`` picks on the window ``dia_layout`` lays out for
-    this device; complex operands run as real products
-    (``complex_products``). Returns y (S, Lrow)."""
+    ``dia_kernel`` picks on the window ``dia_layout`` lays out for this
+    device, in one launch for every type of ``KERNEL_DTYPES``. Returns y
+    (S, Lrow)."""
     if dval.device.type == "cpu" and g.device.type == "cpu":
         return dia_spmv_plain(dval, g, offsets, bias_lo, bias_hi, pad_to)
     if dval.device != g.device or dval.device.type != "cuda":
         raise ValueError(f"dia_spmv: operands on {dval.device} and {g.device}")
     dt = torch.promote_types(dval.dtype, g.dtype)
-    if dt.is_complex:
-        return complex_products(
-            lambda v, x: dia_spmv(v, x, offsets, bias_lo, bias_hi, pad_to),
-            dval, g)
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_spmv kernel takes float32/float64, got {dt}")
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"dia_spmv kernel takes float32/float64/complex64/"
+                        f"complex128, got {dt}")
     if dval.dim() != 3 or g.dim() != 2 or dval.shape[0] != g.shape[0] \
             or dval.shape[1] != len(offsets):
         raise ValueError(f"dia_spmv: shapes {tuple(dval.shape)}, "
@@ -278,16 +294,14 @@ def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
     layout = dia_layout(tuple(offsets), dt.itemsize,
                         smem_cap(g.device.index))
     gcols = min(g.shape[1], pad_to) if pad_to else g.shape[1]
-    lib = _lib()
-    fn = lib.dia_spmv_f64 if dt == torch.float64 else lib.dia_spmv_f32
+    fn = getattr(_lib(), f"dia_spmv_{KERNEL_DTYPES[dt]}")
     from .cuda_build import check, launch_range, stream_ptr
 
-    width = dia_vector_width(dval, g, y)
-    kernel = "dia_vec" if width > 1 else "dia_scalar"
+    kernel = dia_kernel(dval, g, y)
     with launch_range(kernel):
         rc = fn(dval.data_ptr(), g.data_ptr(), y.data_ptr(), S, Lrow, gcols,
                 g.stride(0), ctypes.byref(_c_layout(layout)), layout.threads,
-                width, layout.smem_bytes, stream_ptr(g))
+                int(kernel == "dia_vec"), layout.smem_bytes, stream_ptr(g))
     check(rc, "dia_spmv")
     dia_spmv.launches += 1
     dia_spmv.kernel = kernel
@@ -296,5 +310,5 @@ def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
 
 dia_spmv.launches = 0
 # the kernel of the last launch: "dia_vec" or "dia_scalar" (the entry point
-# runs dia_vec exactly when it is passed a width above 1)
+# runs dia_vec exactly when it is passed vector = 1)
 dia_spmv.kernel = None

@@ -20,6 +20,11 @@ picks the row group width ``lanes`` from the stored row lengths and W
 (``lanes_for``). ``tail_segments`` is the plain model of the tail
 kernel's reduction: which entries each of its atomic adds sums.
 
+The SpMV kernel takes float32, float64, complex64 and complex128 values
+and x (``cuda_dia.KERNEL_DTYPES``), a complex product in one launch on
+torch's interleaved values; the gather-only mode takes reals (a complex
+payload crosses it as real pairs, ``parallel/exchange.py``).
+
 A CUDA tensor goes to the kernels in ``csrc/ell_spmv.cu``; a CPU tensor
 goes to the twins. There is no fallback from one to the other. Index tables
 must be validated on the host (``check_index``) when they are built: the
@@ -34,7 +39,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .cuda_dia import pad_trunc
+from .cuda_dia import KERNEL_DTYPES, pad_trunc
 
 THREADS = 256          # threads a block of the row kernels (kRowThreads)
 TAIL_PER_THREAD = 8    # tail entries a thread (kTailPerThread)
@@ -43,8 +48,8 @@ TAIL_WARP = 32
 
 def lanes_for(W: int, mean_len: float, itemsize: int) -> int:
     """Threads that share a row: the power of two <= 32 covering, in units
-    (16 bytes of values: 2 entries in f64, 4 in f32, when W is a multiple,
-    else 1 entry), the geometric mean of the mean stored row length and the
+    (``unit_entries``: 16 bytes of values when W is a multiple, else 1
+    entry), the geometric mean of the mean stored row length and the
     width W. Short rows thus share a warp, and a pattern whose rows run to
     W (a power law) gives its long rows more lanes than its mean alone
     would. (chip_smoke.py times every width from 1 to 32 on the random,
@@ -59,7 +64,8 @@ def lanes_for(W: int, mean_len: float, itemsize: int) -> int:
 
 
 def unit_entries(W: int, itemsize: int) -> int:
-    """Entries a lane loads at once: 16 bytes of values when W allows."""
+    """Entries a lane loads at once: 16 bytes of values when W allows (4
+    f32, 2 f64 or c64 entries; a c128 entry is 16 bytes by itself)."""
     v = 16 // itemsize
     return v if W % v == 0 else 1
 
@@ -171,7 +177,8 @@ def _lib():
 
     lib = load_kernel_lib("ell_spmv")
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for fn in (lib.ell_spmv_f32, lib.ell_spmv_f64):
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"ell_spmv_{suffix}")
         fn.argtypes = [vp] * 8 + [i64, i64, ci, i64, i64, i64, ci, ci, vp]
         fn.restype = ci
     for fn in (lib.gather_f32, lib.gather_f64):
@@ -223,8 +230,9 @@ def ell_operands(name, vals, cols, g, tail, rowlen, lanes, checked=False):
                          f"group width of 1-32 lanes (SpMVPlan.ell_rowlen, "
                          f"ell_layout), got lanes {lanes}")
     dt = torch.promote_types(vals.dtype, g.dtype)
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"{name} kernel takes float32/float64, got {dt}")
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes float32/float64/complex64/"
+                        f"complex128, got {dt}")
     if not checked:
         _cuda_operands(name, vals, cols, g, rowlen, *(tail or ()))
         if vals.dim() != 3 or g.dim() != 2 or cols.shape != (
@@ -283,8 +291,7 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     if Lrow == 0 or W == 0:
         return y.zero_()
     gcols = min(g.shape[1], pad_to) if pad_to else g.shape[1]
-    lib = _lib()
-    fn = lib.ell_spmv_f64 if dt == torch.float64 else lib.ell_spmv_f32
+    fn = getattr(_lib(), f"ell_spmv_{KERNEL_DTYPES[dt]}")
     from .cuda_build import check, launch_range, stream_ptr
 
     with launch_range("ell_rows"):

@@ -17,6 +17,11 @@ x when two windows do not fit the device's shared-memory cap per block
 (``smem_cap``); the SpMV plan picks the engine by the whole x fitting that
 cap (``ops/spmv.py``), as the JAX package's ``ell_policy_would_accept``.
 
+The kernel takes float32, float64, complex64 and complex128
+(``cuda_dia.KERNEL_DTYPES``), a complex product in one launch; the staged
+x and the cap are counted in the complex item size (a c128 slot is 16
+bytes), so half as many c128 columns fit as f64 ones.
+
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain version.
 There is no fallback from one to the other. Index tables must be validated
 on the host (``check_index``) when they are built: the kernel does not clip.
@@ -32,12 +37,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .cuda_dia import H100_SMEM_CAP
+from .cuda_dia import H100_SMEM_CAP, KERNEL_DTYPES
 from .cuda_ell import ell_operands, ell_spmv_plain, on_cpu, rows_per_pass
 
 # The plain version: K3 computes K2's function, so it is K2's plain version.
 ell_resident_spmv_plain = ell_spmv_plain
-WINDOW_ALIGN = 4   # window ends are widened to 16 bytes: 4 slots in f32
+# window ends are widened to 16 bytes of every type: 4 slots (f32's 16
+# bytes, a multiple of f64's, c64's and c128's)
+WINDOW_ALIGN = 4
 # Row tiles over all shards that tile_rows aims at. The kernel's persistent
 # grid gives each block a fixed share of the tiles, so the tile count
 # against the blocks the card holds at once decides how even that share is;
@@ -122,7 +129,8 @@ def _lib():
 
     lib = load_kernel_lib("ell_resident_spmv")
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for fn in (lib.ell_resident_spmv_f32, lib.ell_resident_spmv_f64):
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"ell_resident_spmv_{suffix}")
         fn.argtypes = [vp] * 9 + [i64, i64, ci, i64, i64, i64, i64, ci, ci,
                                   i64, ci, ci, vp]
         fn.restype = ci
@@ -191,9 +199,7 @@ def ell_resident_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     gcols = min(g.shape[1], G)
     aligned = int(g.data_ptr() % 16 == 0
                   and g.stride(0) * dt.itemsize % 16 == 0)
-    lib = _lib()
-    fn = lib.ell_resident_spmv_f64 if dt == torch.float64 \
-        else lib.ell_resident_spmv_f32
+    fn = getattr(_lib(), f"ell_resident_spmv_{KERNEL_DTYPES[dt]}")
     from .cuda_build import check, launch_range, stream_ptr
 
     with launch_range("ell_resident_rows"):

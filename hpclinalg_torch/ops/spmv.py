@@ -294,7 +294,8 @@ class SpMVPlan:
     def engine(self, dtype: torch.dtype) -> str:
         """The local engine of a product in ``dtype``: "dia", "densify",
         "resident", "ell" or "segment". Resident needs the gathered x, in
-        that dtype, to fit the shared-memory cap."""
+        that dtype's item size (16 bytes a c128 slot), to fit the
+        shared-memory cap."""
         if self.offsets is not None:
             return "dia"
         if self.densify:

@@ -15,6 +15,23 @@ def laplace2d(k):
     return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
 
 
+def helmholtz(k, shift=0.5, damp=0.05):
+    """laplace2d(k) - shift I + damp i I: a complex-symmetric, indefinite
+    Helmholtz operator (the JAX package's tests/test_cplx.py _helmholtz)."""
+    n = k * k
+    return (laplace2d(k) - shift * sp.eye(n) + damp * 1j * sp.eye(n)).tocsr()
+
+
+def complex_values(A, seed):
+    """A copy of A (sorted indices) whose values gain seeded standard-normal
+    imaginary parts: the same pattern, complex128 values."""
+    A = sp.csr_matrix(A, copy=True)
+    A.sort_indices()
+    rng = np.random.default_rng(seed)
+    return sp.csr_matrix((A.data + 1j * rng.standard_normal(A.nnz),
+                          A.indices, A.indptr), shape=A.shape)
+
+
 def wide_span(n):
     """Three diagonals at offsets -w, 0, w with w = 3n/10 (0.5, 2, -0.5):
     an offset span far wider than any tile of K1."""

@@ -76,8 +76,11 @@ class Timer:
 
 # The H100 SXM's data-sheet peaks (NVIDIA): HBM3 bytes/s and the FP64 and
 # FP32 rates outside the tensor cores, the denominators of a kernel's bound.
+# Complex work is counted in real operations (a complex multiply-add is
+# four FMAs, 8 operations) at the rate of its parts' type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12,
+              torch.complex128: 34e12, torch.complex64: 67e12}
 
 
 def bound_ms(nbytes: float, flops: float = 0.0,

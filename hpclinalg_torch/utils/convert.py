@@ -7,6 +7,10 @@ from it without recomputing anything: the stacked data, partitions and
 compressed-column structure are taken as they are. No JAX import is needed.
 The solver selection of the JAX container's backend (``solver=``) carries
 over too, so both sides route ``lu``/``ldlt``/``solve`` to the same engine.
+The JAX package's split-plane complex containers (``ComplexDistVector``,
+``ComplexDistSparseMatrix``: a (re, im) pair of real containers sharing
+one partition or structure) become one native complex container,
+re + i·im, complex64 from f32 planes and complex128 from f64 ones.
 """
 
 from __future__ import annotations
@@ -21,21 +25,41 @@ from ..sparse import DistSparseMatrix, SparseStructure
 from ..vector import DistVector
 
 
+def _planes(re, im) -> np.ndarray:
+    """re + i·im of two real planes, complex64 from f32 and complex128
+    from f64."""
+    re, im = np.asarray(re), np.asarray(im)
+    out = np.empty(re.shape, np.complex64 if re.dtype.itemsize <= 4
+                   else np.complex128)
+    out.real, out.imag = re, im
+    return out
+
+
 def _reference_state(ref) -> dict:
     """The keyword arguments of ``from_reference`` for a container of the
     JAX package — any DistVector, DistDenseMatrix or DistSparseMatrix,
     including one produced by its transpose, addition, SpGEMM or SpMM
-    plans — read by duck typing: its device arrays go through
-    ``np.asarray`` and its host structure arrays are taken as they are, so
-    the structure and its hash carry over."""
+    plans, and the split-plane ``ComplexDistVector`` and
+    ``ComplexDistSparseMatrix`` (their ``re`` and ``im`` planes) — read by
+    duck typing: its device arrays go through ``np.asarray`` and its host
+    structure arrays are taken as they are, so the structure and its hash
+    carry over."""
+    planes = hasattr(ref, "re") and hasattr(ref, "im")
     st = getattr(ref, "structure", None)
-    if st is None and hasattr(ref, "row_partition"):
+    if planes and st is None:
+        return dict(data=_planes(ref.re.data, ref.im.data),
+                    partition=np.asarray(ref.partition))
+    if planes:
+        nzval = _planes(ref.re.nzval, ref.im.nzval)
+    elif st is None and hasattr(ref, "row_partition"):
         return dict(data=np.asarray(ref.data),
                     row_partition=np.asarray(ref.row_partition),
                     col_partition=np.asarray(ref.col_partition))
-    if st is None:
+    elif st is None:
         return dict(data=np.asarray(ref.data), partition=np.asarray(ref.partition))
-    return dict(nzval=np.asarray(ref.nzval), indptr=st.indptr,
+    else:
+        nzval = np.asarray(ref.nzval)
+    return dict(nzval=nzval, indptr=st.indptr,
                 colval=st.colval, col_indices=st.col_indices,
                 row_partition=st.row_partition,
                 col_partition=st.col_partition, ncols=ref.shape[1])

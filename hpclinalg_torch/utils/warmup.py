@@ -20,8 +20,9 @@ KERNEL_SOURCES = ("dia_spmv", "ell_spmv", "ell_resident_spmv", "dia_probe",
 
 
 def build_kernels() -> None:
-    """Build and load every kernel library of ``csrc/``; raises when a
-    build fails."""
+    """Build and load every kernel library of ``csrc/`` and bind every
+    entry point (K1-K3 in f32, f64, c64 and c128); raises when a build
+    fails or an entry point is missing."""
     from ..ops import (cuda_build, cuda_dia, cuda_dia_probe, cuda_ell,
                        cuda_ell_resident, cuda_kpayload)
 
@@ -53,6 +54,12 @@ def warmup(backend) -> None:
 
     _ = (A @ x).data
     _ = (B @ x).data
+    # complex products: on the card each launches K1's complex
+    # instantiation (both small matrices take the DIA engine)
+    z = DistVector.from_global(rng.standard_normal(n)
+                               + 1j * rng.standard_normal(n), backend)
+    _ = (A @ z).data
+    _ = (B @ z).data
     _ = (A + B).nzval
     _ = (A @ B).nzval
     _ = A.transpose_materialized().nzval

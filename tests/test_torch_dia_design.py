@@ -201,10 +201,11 @@ def test_dia_vector_width_rule():
 
 @pytest.mark.parametrize("which", ["both", "values", "x"])
 def test_complex_products_match_complex_dia(which):
-    """On the card K1 takes complex operands as real products of their
-    parts (``complex_products``): the same split over the plain version
-    gives the complex plain product and the JAX package's ``_dia_exec`` on
-    the complex operands, to f64 rounding."""
+    """The real products of the parts (``complex_products``, the route K1
+    took for complex operands before its complex instantiations, and the
+    route the JAX package's split planes take) over the plain version give
+    the complex plain product and the JAX package's ``_dia_exec`` on the
+    complex operands, to f64 rounding."""
     dval, g, offsets, bias_lo, bias_hi, pad_to = _direct_args(
         2, 3000, 3200, (-37, -5, 0, 3, 11, 50), 37, 100, 2950, torch.float64)
     rng = np.random.default_rng(4)
