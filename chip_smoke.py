@@ -127,6 +127,20 @@ hpclinalg_torch/csrc, then:
      f64 ones. The launch counters are set to 0 just before each drive
      and read just after.
 
+ 12. drives the main path with one shard a process (ht.backend_dist over a
+     torch.distributed group, hpclinalg_torch.parallel.launch.run_ranks,
+     tools/dist_checks.card): A @ x on laplace2d(1000) in f64 and f32 (K1
+     and the halo exchange), 20 CG steps and a dot in each, A @ x on the
+     random and power-law matrices (K2, its gather mode, its tail) and on
+     the ridge N (K3), ldlt(laplace2d(512)).solve(b) on the host engine
+     (rank 0 factors) and ht.solve twice; (a) NCCL at world 1, (b) gloo at
+     world 4 with the four ranks sharing the card, (c) NCCL at world =
+     device count with two cards or more. Each rank is held against the
+     same drive run stacked at that S (data movement and K1/K3 bit for
+     bit, the rest to K2_RTOL), must have launched K1, K2, the gather mode
+     and K3, and the CG step, the exchange, an all_reduce and an
+     all_to_all_single are timed per rank beside the stacked step.
+
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
 last is the kernels' JSON record; the last is the device record.
@@ -1541,6 +1555,138 @@ def phase11_complex(ht, dev, R8, PL, N_sc, timer, card, times):
     return launches, errs, timed
 
 
+# ---- phase 12: shards on separate processes -----------------------------------
+
+DIST_WORLD = 4          # gloo ranks sharing the card in arrangement (b)
+DIST_DEADLINE_S = 300   # each arrangement's spawn, set-up and drive
+# rank results held to the stacked run bit for bit: data movement and the
+# K1/K3 products (the same kernel on the same shard's tables)
+DIST_EXACT = ("lap.y.local", "lap_f32.y.local", "lap.y.full",
+              "lap_f32.y.full", "N.y.local", "lap.exchange.local",
+              "lap_f32.exchange.local", "random8.exchange.local",
+              "power_law.exchange.local", "N.exchange.local")
+DIST_ENGINES = {"lap": "dia", "lap_f32": "dia", "random8": "ell",
+                "power_law": "ell", "N": "resident"}
+
+
+def dist_held(ranks, ref, what):
+    """Each rank's results against the stacked run at the same S (rank r's
+    rows against row r): DIST_EXACT keys bit for bit, K2's products, the
+    dots, the CG iterates and residuals and the solves to K2_RTOL of their
+    type (the tail's atomics and the reductions sum in another order).
+    Returns the largest error of each kind."""
+    from hpclinalg_torch.tools.dist_checks import LAUNCH_COUNTERS
+
+    errs = {}
+    for r, out in enumerate(ranks):
+        check(int(out["meta.nlocal"]) == 1 and not bool(out["meta.jax"])
+              and int(out["card.solve.bs.entries"]) == 1,
+              f"{what} rank {r}: one shard, no JAX, one backslash entry")
+        for name, engine in DIST_ENGINES.items():
+            check(str(out[f"card.{name}.engine"]) == engine
+                  == str(ref[f"card.{name}.engine"]),
+                  f"{what} rank {r}: {name} takes the {engine} engine")
+        for key, want in ref.items():
+            if not key.startswith("card.") or key.startswith(
+                    ("card.time.", "card.launches.", "card.secs.")) \
+                    or want.dtype.kind not in "fc":
+                continue
+            got = out[key]
+            if key.endswith(".local"):
+                want = want[r: r + 1]
+            name = key[len("card."):]
+            if name in DIST_EXACT:
+                ok = np.array_equal(got, want)
+                err = float(np.max(np.abs(got - want))) if got.size else 0.0
+                rule = "bit for bit"
+            else:
+                dt = torch.float32 if got.dtype == np.float32 \
+                    else torch.float64
+                ok, err = close(torch.from_numpy(np.atleast_1d(got)),
+                                torch.from_numpy(np.atleast_1d(want)),
+                                K2_RTOL[dt])
+                rule = f"rtol {K2_RTOL[dt]:g}"
+            check(ok, f"{what} rank {r}: {name} equals the stacked run "
+                  f"({rule}, max_abs_err={err:.3e})")
+            kind = name.split(".")[0]
+            errs[kind] = max(errs.get(kind, 0.0), err)
+        launches = {k: int(out[f"card.launches.{k}"])
+                    for k in LAUNCH_COUNTERS}
+        check(all(v >= 1 for v in launches.values()),
+              f"{what} rank {r} launched K1, K2, K2's gather mode and K3: "
+              f"{launches}")
+    return errs
+
+
+def phase12_dist(ht, dev, card, times):
+    """The main path with one shard a process (``ht.backend_dist``), each
+    rank on the card, through ``tools/dist_checks.card`` at this script's
+    sizes: (a) NCCL at world 1; (b) gloo at world DIST_WORLD, the ranks
+    sharing cuda:0 (every collective staged through the host: a test
+    arrangement, not a deployment); (c) NCCL at world = device count when
+    there are two cards or more. Each rank is held against the same body
+    run stacked at that S in this process, and prints one JSON line a
+    arrangement with the stacked step beside it. Returns each kernel's
+    per-rank launches by arrangement."""
+    from hpclinalg_torch.parallel.launch import run_ranks
+    from hpclinalg_torch.tools import dist_checks as dc
+
+    kw = {"k": K, "n": N, "ridge": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA),
+          "k_solve": DEV_K, "seed": SEED}
+    mats = dc.card_matrices(K, N, kw["ridge"], SEED)
+    count = torch.cuda.device_count()
+    arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
+    if count >= 2:
+        arrangements.append(("nccl", count))
+    else:
+        print("  (c) NCCL at world = device count: skipped: one card",
+              flush=True)
+    refs = {}
+    for S in sorted({w for _, w in arrangements}):
+        refs[S], t = timed_s(lambda: dc.card(ht.backend_auto(S, device=dev),
+                                             mats=mats, **kw))
+        print(f"  stacked S={S} reference drive: {t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    dist_launches = {k: {} for k in dc.LAUNCH_COUNTERS}
+    for transport, world in arrangements:
+        what = f"{transport} world {world}"
+        t0 = time.perf_counter()
+        ranks = run_ranks("hpclinalg_torch.tools.dist_checks:on_rank", world,
+                          backend=transport, device="cuda",
+                          deadline_s=DIST_DEADLINE_S, args=("card", kw))
+        secs = time.perf_counter() - t0
+        errs = dist_held(ranks, refs[world], what)
+        ref = refs[world]
+        per_rank = {k: [float(r[f"card.time.{k}"]) for r in ranks]
+                    for k in ("cg_step_ms", "cg_host_enqueue_ms",
+                              "exchange_random8_ms", "all_reduce_ms",
+                              "all_reduce_host_ms", "dot_host_ms",
+                              "all_to_all_64k_ms")}
+        key = f"{transport}_world{world}"
+        for k in dc.LAUNCH_COUNTERS:
+            dist_launches[k][key] = [int(r[f"card.launches.{k}"])
+                                     for r in ranks]
+        record = {"phase12": key, "card": card, "seconds": secs,
+                  **per_rank,
+                  f"stacked_S{world}_cg_step_ms":
+                      float(ref["card.time.cg_step_ms"]),
+                  f"stacked_S{world}_cg_host_enqueue_ms":
+                      float(ref["card.time.cg_host_enqueue_ms"]),
+                  f"stacked_S{world}_exchange_random8_ms":
+                      float(ref["card.time.exchange_random8_ms"]),
+                  f"stacked_S{world}_dot_host_ms":
+                      float(ref["card.time.dot_host_ms"]),
+                  "launches": {k: dist_launches[k][key]
+                               for k in dc.LAUNCH_COUNTERS},
+                  "rank_secs": {k[len("card.secs."):]: [
+                      float(r[k]) for r in ranks]
+                      for k in ranks[0] if k.startswith("card.secs.")},
+                  "max_abs_err": errs}
+        times[f"phase12_{key}"] = record
+        print(json.dumps(record), flush=True)
+    return dist_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
@@ -1954,6 +2100,14 @@ def main():
     check(all(v > 0 for per in launches11.values() for v in per.values()),
           "phase 11 launched K1, K2 and K3 each in c64 and in c128")
 
+    # ---- phase 12: shards on separate processes (public API, f64/f32) ------
+    print(f"phase 12: one shard a process (ht.backend_dist): NCCL world 1, "
+          f"gloo world {DIST_WORLD} on one card, NCCL over every card; K1, "
+          f"K2, its gather mode and K3 in every rank on {card}", flush=True)
+    dist_launches, t12 = timed_s(lambda: phase12_dist(ht, dev, card, times))
+    print(f"phase 12 launches per rank: {dist_launches}; phase 12 took "
+          f"{t12:.1f} s  [{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -1976,12 +2130,14 @@ def main():
          "launches": launches["dia"],
          "device_solver_launches": launches9["dia"],
          "kkt_launches": launches10["dia"],
+         "dist_launches": dist_launches["dia"],
          "max_abs_err": errs["dia"],
          **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
          "launches": launches["ell"], "kkt_launches": launches10["ell"],
+         "dist_launches": dist_launches["ell"],
          "max_abs_err": errs["ell"],
          **timed(("random8", 1, f64))},
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
@@ -1990,6 +2146,7 @@ def main():
          "launches": launches["gather"],
          "device_solver_launches": launches9["gather"],
          "kkt_launches": launches10["gather"],
+         "dist_launches": dist_launches["gather"],
          "max_abs_err": errs["gather"],
          **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
@@ -1997,6 +2154,7 @@ def main():
          "replaces": "hpclinalg/ops/pallas_csr.py:123",
          "launches": launches["resident"],
          "kkt_launches": launches10["resident"],
+         "dist_launches": dist_launches["resident"],
          "max_abs_err": errs["resident"],
          **timed(("k3", "N", 1, f64))},
         {"name": "dia_flat_spmv (K4)", "route": "cuda",

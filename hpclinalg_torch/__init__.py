@@ -1,7 +1,10 @@
 """hpclinalg_torch — the PyTorch/CUDA port of hpclinalg.
 
 Row-partitioned vectors, CSR sparse matrices and dense matrices stored as
-stacked-shard tensors on one device; memoized exchange, SpMV, SpMM,
+stacked-shard tensors on one device, or one shard a process over a
+``torch.distributed`` process group (``backend_dist``: containers, the
+exchange, SpMV, the vector operations and the host solve so far; every
+other operation raises there); memoized exchange, SpMV, SpMM,
 transpose, addition and SpGEMM plans; hand-written Hopper kernels for the
 DIA, ELL and resident-x ELL SpMV engines and for the DIA and k-payload
 probes (``csrc/``, driven by ``hpclinalg_torch.tools``); indexing, index
@@ -11,7 +14,8 @@ The JAX package ``hpclinalg`` is the reference it is tested against; this
 package never imports it or JAX.
 """
 
-from .backend import Backend, backend_auto, backend_serial, backends_compatible
+from .backend import (Backend, backend_auto, backend_dist, backend_serial,
+                      backends_compatible)
 from .cache import cache_sizes, check_cache_sizes, clear_plan_cache
 from .hashing import (dense_structural_hash, partition_hash,
                       sparse_structural_hash)
@@ -36,7 +40,8 @@ from .utils.profiling import annotate, profile_trace
 from .utils.warmup import warmup
 
 __all__ = [
-    "Backend", "backend_auto", "backend_serial", "backends_compatible",
+    "Backend", "backend_auto", "backend_dist", "backend_serial",
+    "backends_compatible",
     "cache_sizes", "check_cache_sizes", "clear_plan_cache",
     "dense_structural_hash", "partition_hash", "sparse_structural_hash",
     "uniform_partition",

@@ -44,6 +44,7 @@ class DistDenseMatrix:
     def __init__(self, data: torch.Tensor, row_partition: np.ndarray,
                  ncols: int, backend: Backend,
                  col_partition: np.ndarray | None = None):
+        backend.require_stacked("DistDenseMatrix (dense.py, ops/mixed.py)")
         self.backend = backend
         self.row_partition = validate_partition(row_partition)
         self.ncols = int(ncols)
@@ -123,7 +124,7 @@ class DistDenseMatrix:
     def to_numpy(self) -> np.ndarray:
         """Gather to the host (ref converter Matrix(),
         HPCLinearAlgebra.jl:871-930). Returns a writable copy."""
-        return gather_to_host(self.data, self.row_partition)
+        return gather_to_host(self.data, self.row_partition, self.backend)
 
     def _like(self, data) -> "DistDenseMatrix":
         return DistDenseMatrix(data, self.row_partition, self.ncols,

@@ -22,6 +22,7 @@ class LazyTranspose:
     __array_priority__ = 130
 
     def __init__(self, parent):
+        parent.backend.require_stacked("a lazy transpose (lazy.py)")
         self.parent = parent
 
     @property

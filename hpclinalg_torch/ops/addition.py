@@ -75,6 +75,7 @@ def get_addition_plan(A, B) -> AdditionPlan:
 
 def add(A, B, alpha=1, beta=1):
     """alpha*A + beta*B (ref: Base.:+/-, sparse.jl:1405/1454)."""
+    A.backend.require_stacked("A + B (ops/addition.py)")
     from ..sparse import DistSparseMatrix
 
     if A.shape != B.shape:
@@ -94,6 +95,7 @@ def add_identity(A, lam=1.0):
     """A + lam*I (ref: IdentityAdditionPlan, sparse.jl:3704-4060). Fast path
     when every diagonal entry exists structurally: a pure value update that
     shares A's structure (and therefore every cached plan)."""
+    A.backend.require_stacked("add_identity (ops/addition.py)")
     from ..sparse import DistSparseMatrix
     from .sparse_build import speye
 

@@ -49,6 +49,8 @@ def _assemble_blocks(backend, placed):
 
 
 def _run_blocks(backend, key, placed):
+    backend.require_stacked("cat and blockdiag of sparse blocks "
+                            "(ops/blocks.py)")
     from ..sparse import DistSparseMatrix
 
     st, plans = cached_plan("blocks_plan", key,
@@ -168,6 +170,7 @@ def hcat_dense(*blocks):
 def vcat_vectors(*vs):
     """Concatenate distributed vectors (ref: vcat for HPCVector,
     blocks.jl:304-445): one cached scatter ExchangePlan per input."""
+    vs[0].backend.require_stacked("vcat of vectors (ops/blocks.py)")
     from ..hashing import partition_hash
     from ..vector import DistVector
     from .gather import scatter_exchange_plan
@@ -194,6 +197,7 @@ def vcat_vectors(*vs):
 def hcat_vectors(*vs):
     """Vectors side by side as the columns of a dense matrix (ref: hcat for
     HPCVector, blocks.jl:304-445), each aligned to the first's partition."""
+    vs[0].backend.require_stacked("hcat of vectors (ops/blocks.py)")
     from ..dense import DistDenseMatrix
 
     v0 = vs[0]

@@ -108,10 +108,13 @@ def ell_windows(cols: np.ndarray, rowlen: np.ndarray, tile_rows: int):
 
 def make_windows(cols: np.ndarray, rowlen: np.ndarray, lanes: int,
                  dtype: torch.dtype, device: torch.device,
-                 tile: int = 0) -> Windows:
+                 tile: int = 0, shards: range | None = None) -> Windows:
     """K3's windows of the host tables ``cols`` and ``rowlen`` for groups
     of ``lanes`` threads in ``dtype`` on ``device``, in tiles of ``tile``
-    rows (default ``tile_rows(lanes, rowlen.size)``; whole row passes)."""
+    rows (default ``tile_rows(lanes, rowlen.size)``; whole row passes).
+    The tile and the staging width are those of all shards; the table on
+    the device holds the rows ``shards`` (default all: a process group's
+    rank keeps its own)."""
     per = rows_per_pass(lanes)
     tile = tile or tile_rows(lanes, rowlen.size)
     if tile < per or tile % per:
@@ -119,6 +122,8 @@ def make_windows(cols: np.ndarray, rowlen: np.ndarray, lanes: int,
                          f"passes of {per} rows")
     table, width = ell_windows(cols, rowlen, tile)
     staged = width if 2 * width * dtype.itemsize <= smem_cap(device) else 0
+    if shards is not None:
+        table = table[shards.start: shards.stop]
     return Windows(torch.from_numpy(table).to(device), lanes, tile, width,
                    staged)
 

@@ -17,6 +17,7 @@ from ..parallel.exchange import ExchangePlan
 def diag(A, k: int = 0):
     """k-th diagonal as a DistVector of length min(m, n-k) (k>=0) or
     min(m+k, n) (k<0), matching Julia's diag (ref sparse.jl:2801)."""
+    A.backend.require_stacked("diag (ops/diagonal.py)")
     from ..vector import DistVector
 
     m, n = A.shape
@@ -85,6 +86,7 @@ def _filter_structure(A, keep_fn):
 
 
 def triu(A, k: int = 0):
+    A.backend.require_stacked("triu (ops/diagonal.py)")
     from ..sparse import DistSparseMatrix
 
     st, plan = cached_plan("triu_plan", (A.hash, k, A.backend.key),
@@ -93,6 +95,7 @@ def triu(A, k: int = 0):
 
 
 def tril(A, k: int = 0):
+    A.backend.require_stacked("tril (ops/diagonal.py)")
     from ..sparse import DistSparseMatrix
 
     st, plan = cached_plan("tril_plan", (A.hash, k, A.backend.key),
@@ -104,6 +107,7 @@ def dropzeros(A, tol: float = 0.0):
     """Drop stored values with |v| <= tol (ref sparse.jl:2755). The result's
     structure depends on the values, so it reads them back to the host and
     is not cached."""
+    A.backend.require_stacked("dropzeros (ops/diagonal.py)")
     from ..sparse import DistSparseMatrix, csr_from_rows
 
     nz = A.nzval.detach().cpu().numpy()

@@ -102,6 +102,7 @@ def dedup_last(ids: np.ndarray):
 def vector_getindex(v, key):
     """v[key] as a DistVector: for a slice on the subrange's partition, for
     a distributed id vector on its partition, else on the uniform one."""
+    v.backend.require_stacked("DistVector indexing (ops/indexing.py)")
     from ..vector import DistVector
 
     backend = v.backend
@@ -124,6 +125,7 @@ def vector_setindex(v, key, value) -> None:
     """``v[key] = value`` (ref: indexing.jl:1871-...). The vector's tensor
     is swapped for the fresh one the exchange returns: a tensor that
     another container may share is never written."""
+    v.backend.require_stacked("DistVector index assignment (ops/indexing.py)")
     from ..backend import numpy_dtype
     from ..vector import DistVector
 

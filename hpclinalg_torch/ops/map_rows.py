@@ -31,6 +31,7 @@ def map_rows(fn, *args, out_dtype=None):
     if not isinstance(v0, (DistVector, DistDenseMatrix)):
         raise TypeError(f"map_rows argument of type {type(v0)}")
     backend = v0.backend
+    backend.require_stacked("map_rows (ops/map_rows.py)")
     part = v0.partition if isinstance(v0, DistVector) else v0.row_partition
     datas = []
     for a in args:

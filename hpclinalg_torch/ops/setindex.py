@@ -144,6 +144,8 @@ def sparse_setindex(A, key, value) -> None:
     (len(rows), len(cols)), a scipy sparse matrix or a DistSparseMatrix
     (whose values move device to device). Repeated ids keep their last
     write. The full matrix is never gathered."""
+    A.backend.require_stacked("DistSparseMatrix index assignment "
+                              "(ops/setindex.py)")
     from ..sparse import DistSparseMatrix
 
     rids, cids = _keys(A, key)

@@ -18,6 +18,7 @@ from ..parallel.exchange import ExchangePlan
 
 def speye(n: int, backend, row_partition=None, col_partition=None, dtype=None):
     """Identity matrix with the given row partition."""
+    backend.require_stacked("speye (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix
 
     rp = (validate_partition(row_partition, n) if row_partition is not None
@@ -61,6 +62,7 @@ def _spdiagm_device(pairs, m: int, n: int, backend):
     offsets, lengths, partitions); the values never touch the host — each
     diagonal's vector data is scattered into the output values by a cached
     ExchangePlan. Repeated offsets sum, as in Julia."""
+    backend.require_stacked("spdiagm (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix, SparseStructure, compress_cols, \
         csr_from_rows
 
@@ -138,6 +140,7 @@ def build_diag(v, n: int):
     the structure depends only on the partition, so it is cached (ref:
     _diag_structure_cache, HPCLinearAlgebra.jl:150-156), and the values are
     v's own slots, cut or zero-padded to the value width."""
+    v.backend.require_stacked("spdiagm (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix, SparseStructure
     from .cuda_dia import pad_trunc
 
@@ -159,6 +162,7 @@ def build_diag(v, n: int):
 
 def spzeros(m: int, n: int, backend, row_partition=None, dtype=None):
     """All-zero sparse matrix (ref: HPCLinearAlgebra.jl:1430-1467)."""
+    backend.require_stacked("spzeros (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix
 
     rp = (validate_partition(row_partition, m) if row_partition is not None
@@ -173,6 +177,7 @@ def sprand_dist(m: int, n: int, density: float, backend, dtype=None,
                 seed: int = 0):
     """Distributed random sparse matrix; the pattern and values are numpy's
     for ``seed``, the same as the JAX package's."""
+    backend.require_stacked("sprand_dist (ops/sparse_build.py)")
     import scipy.sparse as sp
 
     from ..sparse import DistSparseMatrix

@@ -58,6 +58,8 @@ def _build(A, p2):
 
 def repartition_sparse(A, new_row_partition):
     """Ref: repartition (sparse.jl:4573)."""
+    A.backend.require_stacked("repartition of a sparse matrix "
+                              "(ops/sparse_repartition.py)")
     from ..sparse import DistSparseMatrix
 
     p2 = validate_partition(new_row_partition, A.m)

@@ -354,6 +354,7 @@ def get_spgemm_plan(A, B) -> SpGEMMPlan:
 def spgemm(A, B):
     """C = A @ B (ref: Base.:*, sparse.jl:991-1059). C inherits A's row
     partition and B's column partition."""
+    A.backend.require_stacked("SpGEMM (ops/spgemm.py)")
     from ..sparse import DistSparseMatrix
     from ..vector import DistVector
     from .spmv import _dense_block, get_spmv_plan

@@ -34,6 +34,12 @@ The ELL one (``_ell_spmm_exec``) reads B itself at one shard, through
 column tables composed with the compressed-column map and checked
 against B's rows (``_ell_cols_raw``).
 
+On a process group (``Backend.group``) the plan is built from the global
+host structure, the same on every rank with no communication, so every
+rank picks the same engine and the same exchange; each rank uploads only
+its own rows of every table (``Backend.shard_tensor``) and runs the engine
+on its (1, ...) shard. SpMM raises there for now.
+
 Every index table is checked on the host when the plan is built
 (``check_index``): an out-of-range index on the device would be a
 device-side fault, and the kernels do not clip. The per-matrix value tables
@@ -158,7 +164,7 @@ class SpMVPlan:
                     oidx = omap[per_shard[s] - self.offsets[0]]
                     scat[s, : st.nnz_local[s]] = oidx * Lrow + rows_local
             check_index("dia_scatter", scat, O * Lrow, sentinel=O * Lrow)
-            self.dia_scatter = be.tensor(scat)
+            self.dia_scatter = be.shard_tensor(scat)
             # pad widths so every shifted slice of the gathered buffer is
             # valid (an all-zero matrix has no offsets and needs no padding)
             self.bias_lo = max(0, -min(self.offsets)) if self.offsets else 0
@@ -180,7 +186,7 @@ class SpMVPlan:
                         rows_local * G + st.colval[s].astype(np.int64))
                 check_index("dense_scatter", scat, st.Lrow * G,
                             sentinel=st.Lrow * G)
-                self.dense_scatter = be.tensor(scat)
+                self.dense_scatter = be.shard_tensor(scat)
             else:
                 self._build_ell(A)
 
@@ -248,8 +254,8 @@ class SpMVPlan:
         self.ell_cols_np = cols.reshape(S, st.Lrow * W)
         check_index("ell_cols", self.ell_cols_np, G)
         check_index("ell_scat", ell_scat, st.Lrow * W, sentinel=st.Lrow * W)
-        self.ell_cols = be.tensor(self.ell_cols_np)
-        self.ell_scat = be.tensor(ell_scat, torch.int64)
+        self.ell_cols = be.shard_tensor(self.ell_cols_np)
+        self.ell_scat = be.shard_tensor(ell_scat, torch.int64)
         if Tpad:
             trows = np.full((S, Tpad), st.Lrow, dtype=np.int32)   # drop slot
             tgidx = np.zeros((S, Tpad), dtype=np.int32)
@@ -261,17 +267,17 @@ class SpMVPlan:
             check_index("ell_tail_rows", trows, st.Lrow, sentinel=st.Lrow)
             check_index("ell_tail_gidx", tgidx, G)
             check_index("ell_tail_scat", tscat, Tpad, sentinel=Tpad)
-            self.ell_tail_rows = be.tensor(trows)
+            self.ell_tail_rows = be.shard_tensor(trows)
             self.ell_tail_gidx_np = tgidx
-            self.ell_tail_gidx = be.tensor(tgidx)
-            self.ell_tail_scat = be.tensor(tscat)
+            self.ell_tail_gidx = be.shard_tensor(tgidx)
+            self.ell_tail_scat = be.shard_tensor(tscat)
         # the kernels' own table: each row's stored length (they stop there
         # instead of reading the padding)
         rowlen = np.zeros((S, st.Lrow), np.int32)
         for s, ln in enumerate(lens_all):
             rowlen[s, : ln.size] = np.minimum(ln, W)
         self.ell_rowlen_np = rowlen
-        self.ell_rowlen = be.tensor(rowlen)
+        self.ell_rowlen = be.shard_tensor(rowlen)
         self.ell_mean_len = float(rowlen.sum()) / nrows_tot
         self._layouts = {}
         if st.nnz >= MIN_NNZ and W * nrows_tot <= MAX_ELL_BLOWUP * st.nnz:
@@ -286,7 +292,8 @@ class SpMVPlan:
         if hit is None:
             lanes = lanes_for(self.ell_W, self.ell_mean_len, dtype.itemsize)
             win = make_windows(self.ell_cols_np, self.ell_rowlen_np, lanes,
-                               dtype, self.backend.device) \
+                               dtype, self.backend.device,
+                               shards=self.backend.shards) \
                 if self.engine(dtype) == "resident" else None
             hit = self._layouts[dtype] = (lanes, win)
         return hit
@@ -328,6 +335,7 @@ def get_spmv_plan(A, x) -> SpMVPlan:
 def get_spmm_plan(A, B) -> SpMVPlan:
     """The plan of ``A @ B`` with a dense B: the SpMV plan of an x on B's
     row partition, whose exchange moves B's rows whole."""
+    A.backend.require_stacked("SpMM (A @ B with a dense B)")
     return _get_plan(A, B.row_partition, B.row_partition_hash)
 
 
@@ -348,41 +356,43 @@ def _engine_cache(A) -> dict:
 
 
 def _dia_values(A, plan: SpMVPlan) -> torch.Tensor:
-    """(S, O, Lrow) diagonal-value table, built once per matrix instance."""
+    """(nlocal, O, Lrow) diagonal-value table, built once per matrix
+    instance."""
     cache = _engine_cache(A)
     hit = cache.get(("dia", plan.key))
     if hit is None:
         st = A.structure
         O = len(plan.offsets)
         hit = _scatter_table(plan.dia_scatter, A.nzval, O * st.Lrow) \
-            .reshape(A.backend.nshards, O, st.Lrow)
+            .reshape(A.backend.nlocal, O, st.Lrow)
         cache[("dia", plan.key)] = hit
     return hit
 
 
 def _dense_block(A, plan: SpMVPlan) -> torch.Tensor:
-    """(S, Lrow, Gpad) densified local block, cached per matrix instance."""
+    """(nlocal, Lrow, Gpad) densified local block, cached per matrix
+    instance."""
     cache = _engine_cache(A)
     hit = cache.get(("dense", plan.key))
     if hit is None:
         st = A.structure
         G = plan.exchange.out_pad
         hit = _scatter_table(plan.dense_scatter, A.nzval, st.Lrow * G) \
-            .reshape(A.backend.nshards, st.Lrow, G)
+            .reshape(A.backend.nlocal, st.Lrow, G)
         cache[("dense", plan.key)] = hit
     return hit
 
 
 def _ell_values(A, plan: SpMVPlan):
-    """Per-instance ELL value tables: (S, Lrow, W) bulk plus (S, Tpad)
-    tail (None without a tail), cached per matrix instance."""
+    """Per-instance ELL value tables: (nlocal, Lrow, W) bulk plus (nlocal,
+    Tpad) tail (None without a tail), cached per matrix instance."""
     cache = _engine_cache(A)
     hit = cache.get(("ell", plan.key))
     if hit is None:
         st = A.structure
         W, Tpad = plan.ell_W, plan.ell_Tpad
         vals = _scatter_table(plan.ell_scat, A.nzval, st.Lrow * W) \
-            .reshape(A.backend.nshards, st.Lrow, W)
+            .reshape(A.backend.nlocal, st.Lrow, W)
         tvals = _scatter_table(plan.ell_tail_scat, A.nzval, Tpad) \
             if Tpad else None
         hit = (vals, tvals)
@@ -411,7 +421,7 @@ def _segment_spmv(A, g: torch.Tensor) -> torch.Tensor:
     st = A.structure
     dt = torch.promote_types(A.nzval.dtype, g.dtype)
     contrib = A.nzval.to(dt) * torch.gather(g.to(dt), 1, st.colval_dev.long())
-    y = contrib.new_zeros((A.backend.nshards, st.Lrow + 1))  # col Lrow: drop
+    y = contrib.new_zeros((A.backend.nlocal, st.Lrow + 1))  # col Lrow: drop
     y.scatter_add_(1, st.row_ids_dev.long(), contrib)
     return y[:, : st.Lrow].contiguous()
 

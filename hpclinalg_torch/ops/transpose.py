@@ -69,6 +69,7 @@ def materialize_transpose(A):
     """Ref: HPCSparseMatrix{T}(transpose(A)) (sparse.jl:1846-1865), with the
     same bidirectional result caching (``DistSparseMatrix.cached_transpose``:
     the back reference is weak)."""
+    A.backend.require_stacked("transpose (ops/transpose.py)")
     from ..sparse import DistSparseMatrix
 
     At = A.cached_transpose

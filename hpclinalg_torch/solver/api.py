@@ -15,6 +15,15 @@ Numeric phases of the host engine run in the native C++ engine
 multifrontal as fallback. ``method="device"`` (or a backend built with
 ``solver="device"``) selects the device multifrontal engine
 (``solver/device_mf.py``).
+
+On a process group the host engine runs on rank 0 alone: every rank
+all-gathers A's values and the right-hand side (collectives, so every
+rank takes them, cached or not), rank 0 factors and solves, and the
+solution is broadcast; each rank keeps its rows. The other ranks hold a
+handle that only takes part in the collectives. Rank 0 alone factors
+because the symbolic analysis picks its ordering by timing a trial
+factorization (``symbolic.analyze_fastest``): ranks could pick different
+orderings and return rows of slightly different solutions.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import numpy as np
 
 from ..backend import numpy_dtype
 from ..cache import cached_plan, plan_cache
+from ..parallel import comm
 from .multifrontal import NumericFactor, factorize, solve_factored, _PERT_REL
 from .native import NativeFactor, load_mf
 from .symbolic import SymbolicFactor, analyze_best, analyze_fastest
@@ -143,7 +153,9 @@ class _CSCView:
 
 class Factorization:
     """LDLᵀ/LU factorization handle on the host engine (ref:
-    MUMPSFactorization, mumps_factorization.jl:42)."""
+    MUMPSFactorization, mumps_factorization.jl:42). On a process group
+    only rank 0 (``root``) holds the factors; every rank reports rank 0's
+    ``n_perturbed``."""
 
     _GROWTH_MAX = 1e8
 
@@ -151,22 +163,34 @@ class Factorization:
         self.A = A
         self.kind = kind
         self.backend = A.backend
+        self.root = A.backend.rank == 0
         self.structural_hash = A.hash
         self.dtype = np.dtype(np.complex128 if _is_complex(A.dtype)
                               else np.float64)
         self._A_host = None
         self._csc_buf = None
         self._growth: float | None = None
+        self._finalized = False
+        self._n_perturbed = 0   # rank 0's count, on every rank of a group
         self.cperm: np.ndarray | None = None  # MC64-role column permutation
-        self.sym = _get_symbolic(A)
-        self._lib = load_mf()
+        self.sym = _get_symbolic(A) if self.root else None
+        self._lib = load_mf() if self.root else None
         self.native: NativeFactor | None = (
             NativeFactor(self.sym, self.dtype) if self._lib is not None else None)
         self.num: NumericFactor | None = None
         self._numeric(A)
 
     def _numeric(self, A):
-        vals = A.host_values().astype(self.dtype, copy=False)
+        raw = A.host_values()   # every rank: a collective on a group
+        if self.root:
+            self._factor(A, raw)
+        if self.backend.is_dist:
+            # one broadcast, so that no rank branches on a count it lacks
+            t = self.backend.tensor([self._local_perturbed()], np.int64)
+            self._n_perturbed = int(comm.broadcast(self.backend, t).item())
+
+    def _factor(self, A, raw):
+        vals = raw.astype(self.dtype, copy=False)
         # host CSR copy for refinement residuals; its value refresh is lazy
         # (only refinement and escalation read it). Rows are deliberately
         # left unsorted so the storage-order value refresh stays aligned.
@@ -179,7 +203,7 @@ class Factorization:
         else:
             self._A_host_stale = True
         if self.native is None:
-            self.num = factorize(self.sym, A.to_scipy(), self.kind)
+            self.num = factorize(self.sym, A.csr_with(raw), self.kind)
             return
         anorm = float(np.abs(vals).max()) if vals.size else 0.0
         # relative threshold (no 1.0 floor: it would perturb every pivot of
@@ -303,8 +327,19 @@ class Factorization:
 
     def _solve_any(self, solve_host, bh: np.ndarray, transpose: bool,
                    refine: int | None) -> np.ndarray:
-        if self.native is None and self.num is None:
+        """The solution of ``bh`` on every rank: computed here, or, on a
+        group, on rank 0 and broadcast."""
+        if self._finalized:
             raise RuntimeError("factorization was finalized")
+        if not self.backend.is_dist:
+            return self._solve_here(solve_host, bh, transpose, refine)
+        x = self._solve_here(solve_host, bh, transpose, refine) if self.root \
+            else np.empty(bh.shape, np.result_type(bh.dtype, self.dtype))
+        t = comm.broadcast(self.backend, self.backend.tensor(x))
+        return t.cpu().numpy()
+
+    def _solve_here(self, solve_host, bh: np.ndarray, transpose: bool,
+                    refine: int | None) -> np.ndarray:
         if refine is None:
             # unperturbed, growth-bounded f64 direct solves are already at
             # ~1e-13 relative residual (the reference's MUMPS path runs
@@ -326,7 +361,8 @@ class Factorization:
         """Solve A x = b (or Aᵀ x = b). b: DistVector or host array; returns
         the same flavor, partitioned like A's rows. The RHS is gathered to
         the host, as the reference gathers it for MUMPS
-        (mumps_factorization.jl:316-329)."""
+        (mumps_factorization.jl:316-329). On a group every rank calls it
+        with the same b."""
         from ..vector import DistVector
 
         is_dist = isinstance(b, DistVector)
@@ -360,6 +396,8 @@ class Factorization:
         """Release numeric data (ref: finalize!, mumps_factorization.jl:421)."""
         self.num = None
         self.native = None
+        self._n_perturbed = 0
+        self._finalized = True
 
     def _clean(self) -> bool:
         """No perturbations and bounded growth: safe to skip refinement."""
@@ -371,11 +409,21 @@ class Factorization:
 
     @property
     def n_perturbed(self) -> int:
+        """Pivots perturbed by the last factorization; on a group, rank
+        0's count on every rank."""
+        if self.backend.is_dist:
+            return self._n_perturbed
+        return self._local_perturbed()
+
+    def _local_perturbed(self) -> int:
         if self.native is not None:
             return self.native.n_perturbed
         return self.num.n_perturbed if self.num else 0
 
     def __repr__(self):
+        if self.sym is None:
+            return (f"Factorization(kind={self.kind}, n={self.A.m}, factors "
+                    f"on rank 0)")
         return (f"Factorization(kind={self.kind}, n={self.A.m}, "
                 f"nsuper={self.sym.nsuper}, lnz={self.sym.lnz}, "
                 f"native={self.native is not None})")

@@ -1036,6 +1036,8 @@ class DeviceFactorization:
     on the device end to end: gather in, wave solves, scatter out."""
 
     def __init__(self, A, kind: str = "ldl", dtype=None):
+        A.backend.require_stacked("the device multifrontal solver "
+                                  "(solver/device_mf.py)")
         self.A = A
         self.backend = A.backend
         self.structural_hash = A.hash

@@ -11,8 +11,10 @@ holds indices into it.
     blake2b structural hash keying the plan caches. The arrays and the hash
     equal the JAX package's for the same input.
   * Only ``nzval`` lives on the device: one stacked (S, NNZpad) tensor,
-    padding zero. Matrices sharing a pattern share the structure object,
-    so plans and symbolic factorizations are reused.
+    padding zero — (1, NNZpad), this process's rows, on a process group,
+    where the structure stays global and identical on every rank. Matrices
+    sharing a pattern share the structure object, so plans and symbolic
+    factorizations are reused.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from .backend import Backend, numpy_dtype, resolve_dtype
 from .config import round_up
+from .parallel import comm
 from .partition import padded_size, uniform_partition, validate_partition
 
 
@@ -75,18 +78,19 @@ class SparseStructure:
 
     @cached_property
     def row_ids_dev(self) -> torch.Tensor:
-        return self.backend.tensor(self.row_ids)
+        return self.backend.shard_tensor(self.row_ids)
 
     @cached_property
     def colval_dev(self) -> torch.Tensor:
-        """(S, NNZpad) int32 compressed column of each stored value; padding
-        points at the guaranteed-zero slot of the gathered-x buffer."""
+        """(nlocal, NNZpad) int32 compressed column of each stored value of
+        this process's shards; padding points at the guaranteed-zero slot
+        of the gathered-x buffer."""
         S = self.backend.nshards
         out = np.empty((S, self.NNZpad), dtype=np.int32)
-        for s in range(S):
+        for s in self.backend.shards:
             out[s, :] = len(self.col_indices[s])  # a zero slot < Gpad
             out[s, : self.nnz_local[s]] = self.colval[s]
-        return self.backend.tensor(out)
+        return self.backend.shard_tensor(out)
 
     @cached_property
     def global_coo(self) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -101,9 +105,9 @@ class SparseStructure:
 
     @cached_property
     def nnz_mask_dev(self) -> torch.Tensor:
-        """(S, NNZpad) bool: True on stored values, False on padding."""
+        """(nlocal, NNZpad) bool: True on stored values, False on padding."""
         m = np.arange(self.NNZpad)[None, :] < self.nnz_local[:, None]
-        return self.backend.tensor(m)
+        return self.backend.shard_tensor(m)
 
     @property
     def shape(self):
@@ -181,11 +185,11 @@ class DistSparseMatrix:
 
     def __init__(self, structure: SparseStructure, nzval: torch.Tensor,
                  backend: Backend):
-        if tuple(nzval.shape) != (backend.nshards, structure.NNZpad):
-            raise ValueError(f"nzval must be {(backend.nshards, structure.NNZpad)}"
+        if tuple(nzval.shape) != (backend.nlocal, structure.NNZpad):
+            raise ValueError(f"nzval must be {(backend.nlocal, structure.NNZpad)}"
                              f", got {tuple(nzval.shape)}")
         self.structure = structure
-        self.nzval = nzval  # (S, NNZpad), padding zero
+        self.nzval = nzval  # (nlocal, NNZpad), padding zero
         self.backend = backend
         # the materialised transpose, cached both ways (ref sparse.jl:333):
         # a matrix holds its transpose, the transpose a weakref back, so no
@@ -236,7 +240,8 @@ class DistSparseMatrix:
     def from_scipy(A, backend: Backend, row_partition=None, col_partition=None,
                    dtype=None) -> "DistSparseMatrix":
         """Build from a host scipy sparse matrix — each shard slices its rows
-        (ref global ctor, sparse.jl:398-409)."""
+        (ref global ctor, sparse.jl:398-409). On a group every rank passes
+        the same matrix and keeps its own rows' values."""
         A = sp.csr_matrix(A)
         A.sort_indices()
         m, n = A.shape
@@ -250,13 +255,14 @@ class DistSparseMatrix:
         st = _structure_from_local_csr(parts, n, backend, col_partition)
         nz = _pad_stack_nzval(vals, st.NNZpad,
                               resolve_dtype(backend, A.dtype, dtype))
-        return DistSparseMatrix(st, backend.tensor(nz), backend)
+        return DistSparseMatrix(st, backend.shard_tensor(nz), backend)
 
     @staticmethod
     def from_local_csr(parts, ncols: int, backend: Backend, col_partition=None,
                        dtype=None) -> "DistSparseMatrix":
         """Build from per-shard (indptr, global col indices, values) triples
         (ref: HPCSparseMatrix_local, sparse.jl:454-525)."""
+        backend.require_stacked("DistSparseMatrix.from_local_csr")
         st = _structure_from_local_csr([(ip, gj) for ip, gj, _v in parts],
                                        ncols, backend, col_partition)
         vals = [np.asarray(v) for _ip, _gj, v in parts]
@@ -293,9 +299,11 @@ class DistSparseMatrix:
             shape=self.shape)
 
     def host_values(self) -> np.ndarray:
-        """Stored values in global CSR order (matches to_scipy().data)."""
+        """Stored values in global CSR order (matches to_scipy().data). On
+        a group every rank must call it: it all-gathers the values."""
         st = self.structure
-        nz = self.nzval.detach().cpu().numpy()
+        nz = comm.all_gather_rows(self.backend, self.nzval).detach().cpu() \
+            .numpy()
         if not self.backend.nshards:
             return np.zeros(0, numpy_dtype(self.dtype))
         return np.concatenate([nz[s, : st.nnz_local[s]]
@@ -303,10 +311,14 @@ class DistSparseMatrix:
 
     def to_scipy(self) -> sp.csr_matrix:
         """Gather to a host scipy CSR (ref converter SparseMatrixCSC(),
-        HPCLinearAlgebra.jl:871-930)."""
+        HPCLinearAlgebra.jl:871-930); a collective on a group."""
+        return self.csr_with(self.host_values())
+
+    def csr_with(self, values: np.ndarray) -> sp.csr_matrix:
+        """Host CSR of this pattern holding ``values``, given in global CSR
+        order as ``host_values`` returns them."""
         indptr, indices = self._gathered_pattern()
-        return sp.csr_matrix((self.host_values(), indices, indptr),
-                             shape=self.shape)
+        return sp.csr_matrix((values, indices, indptr), shape=self.shape)
 
     def issymmetric(self) -> bool:
         """Exact symmetry of pattern and values, checked on the host."""
@@ -472,6 +484,7 @@ class DistSparseMatrix:
     # -- reductions (ref sparse.jl:2172-2244, 2586-2723) -------------------------
     def norm(self, p=2):
         """Elementwise norm of the stored values (Frobenius for p = 2)."""
+        self.backend.require_stacked("DistSparseMatrix.norm")
         a = torch.abs(self.nzval)
         if p == 2:
             return torch.sqrt(torch.sum(a ** 2))
@@ -485,6 +498,7 @@ class DistSparseMatrix:
         """Induced 1- and inf-norms: the largest absolute column or row sum."""
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.opnorm")
         if p == np.inf:
             return reductions.row_abs_sum(self).max()
         if p == 1:
@@ -496,6 +510,7 @@ class DistSparseMatrix:
         the row partition) or column sums (axis=0, on the column partition)."""
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.sum")
         if axis is None:
             return torch.sum(self.nzval)
         if axis == 1:
@@ -507,23 +522,27 @@ class DistSparseMatrix:
     def tr(self):
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.tr")
         return reductions.trace(self)
 
     def maximum(self):
         """The largest entry, the implicit zeros counted (ref sparse.jl:2650)."""
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.maximum")
         return reductions.maximum(self)
 
     def minimum(self):
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.minimum")
         return reductions.minimum(self)
 
     def mean(self):
         """The mean over all m*n entries (ref sparse.jl:2678)."""
         from .ops import reductions
 
+        self.backend.require_stacked("DistSparseMatrix.mean")
         return reductions.mean(self)
 
     # -- indexing (ref indexing.jl) ----------------------------------------------

@@ -1,0 +1,90 @@
+"""The port's ``dryrun_multichip``: one distributed CG run and a host solve
+over n ranks of a ``torch.distributed`` process group, the analogue of the
+JAX package's ``__graft_entry__.dryrun_multichip`` over an n-device mesh.
+
+    python -m hpclinalg_torch.tools.dryrun [n]      # n NCCL ranks, a card each
+    python -m hpclinalg_torch.tools.dryrun [n] --device cpu   # n gloo ranks
+
+It runs what this slice of the port runs on a group: 20 CG steps on
+laplace2d(16) in f32 (the halo exchange, the SpMV, the all-reduced dots),
+with the residual below a tenth of its start, then a host ``ldlt`` solve
+(rank 0 factors) with its residual below 1e-5 in f32 and 1e-10 in f64.
+The JAX function's device LDLᵀ/LU and its complex part are not run: the
+device multifrontal solver and complex values on a group are later slices
+(ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from .matrices import laplace2d
+
+SOLVE_RES = {np.float32: 1e-5, np.float64: 1e-10}
+
+
+def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
+                     backend: str = "nccl") -> dict:
+    """Without ``comm``: start ``n_devices`` ranks with the ``backend``
+    transport (``parallel.launch.run_ranks``), run this function on each
+    and return rank 0's results. With ``comm``, a process group of
+    ``n_devices`` ranks that this process belongs to: run on it here
+    (``backend`` is then the group's own). The shard is on this rank's
+    card; without a CUDA device this raises unless the caller asks for the
+    CPU (``device="cpu"``, with ``backend="gloo"``). Raises when a check
+    fails; returns the residuals."""
+    if comm is None:
+        from ..parallel.launch import run_ranks
+
+        ranks = run_ranks("hpclinalg_torch.tools.dryrun:_on_rank", n_devices,
+                          backend=backend, device=device, args=(n_devices,))
+        return ranks[0]
+    import hpclinalg_torch as ht
+    from .ell_ab import cg
+
+    be = ht.backend_dist(dtype=np.float32, group=comm,
+                         device="cpu" if device == "cpu" else None)
+    if be.world != n_devices:
+        raise ValueError(f"the group has {be.world} ranks, not {n_devices}")
+    L = laplace2d(16)                        # n = 256 over every rank
+    A = ht.DistSparseMatrix.from_scipy(L, be)
+    b = ht.DistVector.from_global(np.ones(L.shape[0]), be)
+    x, r = cg(A, b, 20)
+    rn0, rn = float(b.norm()), float(r.norm())
+    if not (np.isfinite(x.to_numpy()).all() and rn < 0.1 * rn0):
+        raise AssertionError(f"CG did not converge: {rn} vs {rn0}")
+    out = {"cg_residual": rn, "cg_residual0": rn0}
+    bh = np.ones(L.shape[0])
+    for dt, tol in SOLVE_RES.items():
+        Ad = ht.DistSparseMatrix.from_scipy(L, be, dtype=dt)
+        xs = ht.ldlt(Ad).solve(ht.DistVector.from_global(bh, be, dtype=dt))
+        res = float(np.linalg.norm(L.astype(dt) @ xs.to_numpy() - bh)
+                    / np.linalg.norm(bh))
+        if not res < tol:
+            raise AssertionError(f"host ldlt solve residual {res} in "
+                                 f"{np.dtype(dt).name} is not below {tol}")
+        out[f"solve_residual_{np.dtype(dt).name}"] = res
+    return out
+
+
+def _on_rank(device: str, n_devices: int) -> dict:
+    import torch.distributed as dist
+
+    return dryrun_multichip(n_devices, comm=dist.group.WORLD, device=device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("n", type=int, nargs="?", default=2, help="ranks")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="each rank's shard: on its card over NCCL "
+                         "(default), or on the CPU over gloo")
+    a = ap.parse_args(argv)
+    print(dryrun_multichip(a.n, device=a.device,
+                           backend="nccl" if a.device == "cuda" else "gloo"))
+
+
+if __name__ == "__main__":
+    main()

@@ -76,7 +76,8 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
     arrays (per-shard ``indptr``, ``colval``, ``col_indices``, the two
     partitions and ``ncols``). A container carried over from ``ref`` lives
     on ``backend`` with the solver of ``ref``'s backend ("multifrontal" or
-    "device")."""
+    "device"); on a process group each rank keeps its own shard of the
+    stacked data."""
     if ref is not None:
         solver = getattr(getattr(ref, "backend", None), "solver",
                          backend.solver)
@@ -92,7 +93,7 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
     if data is not None:
         if partition is None:
             raise ValueError("a vector needs its partition")
-        return DistVector(backend.tensor(np.asarray(data)),
+        return DistVector(backend.shard_tensor(data),
                           np.asarray(partition), backend)
     if any(a is None for a in (nzval, indptr, colval, col_indices,
                                row_partition, col_partition)):
@@ -101,16 +102,17 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
                          colval, backend)
     if ncols is not None and st.shape[1] != int(ncols):
         raise ValueError(f"ncols {ncols} != column partition end {st.shape[1]}")
-    return DistSparseMatrix(st, backend.tensor(np.asarray(nzval)), backend)
+    return DistSparseMatrix(st, backend.shard_tensor(nzval), backend)
 
 
 def to_backend(x, backend: Backend):
     """A copy of a distributed container on another Backend: another
-    device, shard count or dtype (the target backend's dtype), on the
-    uniform partition of the target's shard count, as the JAX package's
-    ``to_backend`` gives. Vectors and dense matrices move gathered whole
-    from device to device; a sparse matrix's structure is rebuilt on the
-    host, where it lives, and its values go with it."""
+    device, shard count, dtype (the target backend's dtype) or process
+    group, on the uniform partition of the target's shard count, as the
+    JAX package's ``to_backend`` gives. Vectors and dense matrices move
+    gathered whole from device to device (an all-gather from a group; a
+    group rank keeps its own shard); a sparse matrix's structure is rebuilt
+    on the host, where it lives, and its values go with it."""
     from ..backend import torch_dtype
     from ..parallel.mesh import allgather_full, scatter_from_full
     from ..partition import uniform_partition
@@ -134,7 +136,8 @@ def to_backend(x, backend: Backend):
 
 
 def comm_size(backend: Backend) -> int:
-    """The shard count, the analogue of the world size (ref: comm_size)."""
+    """The shard count: the world size on a process group, the analogue
+    of it stacked (ref: comm_size)."""
     return backend.nshards
 
 

@@ -35,6 +35,7 @@ def build_kernels() -> None:
 
 def warmup(backend) -> None:
     """Run tiny versions of the hot operations on ``backend``."""
+    backend.require_stacked("warmup (utils/warmup.py)")
     from ..dense import DistDenseMatrix
     from ..solver.api import ldlt
     from ..sparse import DistSparseMatrix

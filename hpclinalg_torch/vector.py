@@ -2,10 +2,12 @@
 
 PyTorch counterpart of the JAX package's ``DistVector`` (and of the
 reference's ``HPCVector``): row-partitioned, stored as one stacked-shard
-tensor of shape (S, L) on the backend's device, with the padding region
-kept identically zero (the padding invariant). Elementwise arithmetic and
-reductions are plain tensor operations over the whole stack; a reduction
-over (S, L) is the reference's Allreduce.
+tensor of shape (S, L) on the backend's device — (1, L), this process's
+shard, on a process group — with the padding region kept identically zero
+(the padding invariant). Elementwise arithmetic and reductions are plain
+tensor operations over the local shards; a reduction over them, followed
+on a group by an ``all_reduce`` (``parallel/comm.py``), is the reference's
+Allreduce.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 from .backend import Backend, backends_compatible, resolve_dtype, torch_dtype
 from .cache import cached_plan
 from .hashing import partition_hash
+from .parallel import comm
+from .parallel.mesh import gather_to_host
 from .partition import (
     nshards_of,
     padded_size,
@@ -27,10 +31,11 @@ from .partition import (
 
 
 def _mask_dev(partition: np.ndarray, L: int, backend: Backend) -> torch.Tensor:
-    """Device (S, L) bool validity mask, cached per (partition, L, backend)."""
+    """Device (nlocal, L) bool validity mask of this process's shards,
+    cached per (partition, L, backend)."""
     key = ("mask", partition_hash(partition), L, backend.key)
     return cached_plan("masks", key,
-                       lambda: backend.tensor(shard_mask(partition, L)))
+                       lambda: backend.shard_tensor(shard_mask(partition, L)))
 
 
 def _finite_scalar(o) -> bool:
@@ -79,9 +84,12 @@ class DistVector:
         self.partition = validate_partition(partition)
         self._lazy_stacked = None
         self._lazy_full = None
-        self.data = data  # (S, L), padding zero
-        if data.dim() != 2 or data.shape[0] != backend.nshards:
-            raise ValueError(f"data must be (S={backend.nshards}, L), got "
+        self.data = data  # (nlocal, L), padding zero
+        if nshards_of(self.partition) != backend.nshards:
+            raise ValueError(f"the partition has {nshards_of(self.partition)}"
+                             f" shards, the backend {backend.nshards}")
+        if data.dim() != 2 or data.shape[0] != backend.nlocal:
+            raise ValueError(f"data must be (S={backend.nlocal}, L), got "
                              f"{tuple(data.shape)}")
         self._phash: str | None = None
 
@@ -92,7 +100,7 @@ class DistVector:
     @property
     def data(self) -> torch.Tensor:
         if self._data is None:
-            self._data = self.backend.tensor(self._lazy_stacked)
+            self._data = self.backend.shard_tensor(self._lazy_stacked)
             self._lazy_stacked = None  # _lazy_full stays valid (private copy)
         return self._data
 
@@ -141,7 +149,7 @@ class DistVector:
         p = validate_partition(partition, arr.shape[0]) if partition is not None \
             else uniform_partition(arr.shape[0], backend.nshards)
         out = _stack(arr, p, resolve_dtype(backend, arr.dtype, dtype))
-        return DistVector(backend.tensor(out), p, backend)
+        return DistVector(backend.shard_tensor(out), p, backend)
 
     @staticmethod
     def from_global_deferred(arr, backend: Backend,
@@ -168,15 +176,16 @@ class DistVector:
     def zeros(n: int, backend: Backend, partition=None, dtype=None) -> "DistVector":
         p = validate_partition(partition, n) if partition is not None \
             else uniform_partition(n, backend.nshards)
-        data = torch.zeros((nshards_of(p), padded_size(p)),
+        data = torch.zeros((backend.nlocal, padded_size(p)),
                            dtype=torch_dtype(dtype or backend.dtype),
                            device=backend.device)
         return DistVector(data, p, backend)
 
     @staticmethod
     def from_local(shards, backend: Backend, dtype=None) -> "DistVector":
-        """Build from per-shard local arrays, one a shard; the partition
-        follows their lengths (ref: HPCVector_local, vectors.jl:76)."""
+        """Build from per-shard local arrays, one a shard (all of them, on
+        every rank of a group); the partition follows their lengths (ref:
+        HPCVector_local, vectors.jl:76)."""
         shards = [np.asarray(v) for v in shards]
         p = np.concatenate([[0], np.cumsum([len(v) for v in shards])]) \
             .astype(np.int64)
@@ -184,7 +193,7 @@ class DistVector:
             backend, np.result_type(*shards), dtype))
         for s, v in enumerate(shards):
             out[s, : len(v)] = v
-        return DistVector(backend.tensor(out), p, backend)
+        return DistVector(backend.shard_tensor(out), p, backend)
 
     @staticmethod
     def ones(n: int, backend: Backend, partition=None, dtype=None) -> "DistVector":
@@ -230,9 +239,7 @@ class DistVector:
         return arr
 
     def _gather(self) -> np.ndarray:
-        host = self.data.detach().cpu().numpy()
-        sizes = partition_sizes(self.partition)
-        return np.concatenate([host[s, : sizes[s]] for s in range(len(sizes))])
+        return gather_to_host(self.data, self.partition, self.backend)
 
     @staticmethod
     def _wrap(data: torch.Tensor, partition: np.ndarray, backend: Backend,
@@ -250,7 +257,7 @@ class DistVector:
         return DistVector._wrap(data, self.partition, self.backend, self._phash)
 
     def _has_padding(self) -> bool:
-        return self.n != self.data.numel()
+        return self.n != self.backend.nshards * self.L
 
     def mask(self) -> torch.Tensor:
         return _mask_dev(self.partition, self.L, self.backend)
@@ -377,22 +384,35 @@ class DistVector:
         return self._like(torch.conj_physical(self.data))
 
     # -- reductions (ref: vectors.jl:758-857) ---------------------------------
+    # Each reduces this process's shards, then, on a group, all-reduces the
+    # partial result: a 0-d tensor on the device, the same on every rank.
     def dot(self, other: "DistVector") -> torch.Tensor:
         """conj(self)' * other, Julia ``dot`` convention (vectors.jl:798);
         a 0-d tensor on the device (no host synchronisation)."""
         o = self._aligned(other)
         dt = torch.promote_types(self.data.dtype, o.data.dtype)
-        return torch.vdot(self.data.reshape(-1).to(dt),
-                          o.data.reshape(-1).to(dt))
+        return comm.all_reduce(self.backend, torch.vdot(
+            self.data.reshape(-1).to(dt), o.data.reshape(-1).to(dt)))
 
     def norm(self, p=2) -> torch.Tensor:
-        return torch.linalg.vector_norm(self.data.reshape(-1), ord=p)
+        a = self.data.reshape(-1)
+        if not self.backend.is_dist:
+            return torch.linalg.vector_norm(a, ord=p)
+        if p in (np.inf, -np.inf):
+            return comm.all_reduce(self.backend, torch.linalg.vector_norm(
+                a, ord=p), "max" if p > 0 else "min")
+        if p == 0:
+            return comm.all_reduce(self.backend,
+                                   torch.linalg.vector_norm(a, ord=0))
+        part = comm.all_reduce(self.backend,
+                               torch.linalg.vector_norm(a, ord=p) ** p)
+        return part ** (1.0 / p)
 
     def sum(self) -> torch.Tensor:
-        return self.data.sum()
+        return comm.all_reduce(self.backend, self.data.sum())
 
     def mean(self) -> torch.Tensor:
-        return self.data.sum() / self.n
+        return self.sum() / self.n
 
     def _filled(self, fill) -> torch.Tensor:
         """The data with the padding set to ``fill``."""
@@ -406,12 +426,12 @@ class DistVector:
         """The largest entry; the padding reads as -inf (the least integer)."""
         dt = self.data.dtype
         fill = -np.inf if dt.is_floating_point else torch.iinfo(dt).min
-        return self._filled(fill).max()
+        return comm.all_reduce(self.backend, self._filled(fill).max(), "max")
 
     def min(self) -> torch.Tensor:
         dt = self.data.dtype
         fill = np.inf if dt.is_floating_point else torch.iinfo(dt).max
-        return self._filled(fill).min()
+        return comm.all_reduce(self.backend, self._filled(fill).min(), "min")
 
     @property
     def H(self):
