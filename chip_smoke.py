@@ -132,14 +132,25 @@ hpclinalg_torch/csrc, then:
      tools/dist_checks.card): A @ x on laplace2d(1000) in f64 and f32 (K1
      and the halo exchange), 20 CG steps and a dot in each, A @ x on the
      random and power-law matrices (K2, its gather mode, its tail) and on
-     the ridge N (K3), ldlt(laplace2d(512)).solve(b) on the host engine
-     (rank 0 factors) and ht.solve twice; (a) NCCL at world 1, (b) gloo at
-     world 4 with the four ranks sharing the card, (c) NCCL at world =
-     device count with two cards or more. Each rank is held against the
-     same drive run stacked at that S (data movement and K1/K3 bit for
-     bit, the rest to K2_RTOL), must have launched K1, K2, the gather mode
-     and K3, and the CG step, the exchange, an all_reduce and an
-     all_to_all_single are timed per rank beside the stacked step.
+     the ridge N (K3), in c128 on the Helmholtz operator (K1), the random
+     matrix (K2) and N (K3; K2 at world 1, over K3's cap), then the ridge
+     assembly at phase 6's sizes (At = A.T.materialize(), N = (At @
+     A).add_identity(lambda) on the pair engine, rhs = At @ b, 50 CG steps
+     on N, ldlt(N).solve(rhs) on the host, A @ x; N against scipy's in
+     every rank; the refit A.with_values(1.5 A.nzval) reusing every plan;
+     laplace2d(1000) + the random matrix; diag and triu of laplace2d(1000);
+     a c128 transpose and addition), then ldlt(laplace2d(256)).solve(b)
+     on the host engine (rank 0 factors) and ht.solve twice; (a) NCCL at
+     world 1, (b) gloo at world 4 with the four ranks sharing the card,
+     (c) NCCL at world = device count with two cards or more. Every drive
+     clears the plan caches first. Each rank is held against the same
+     drive run stacked at that S (data movement and K1/K3 bit for bit, the
+     rest to K2_RTOL), must have launched K1, K2, the gather mode and K3,
+     and the CG step, the exchange, the ridge's first and cached
+     transpose, SpGEMM and additions, an all_reduce and an
+     all_to_all_single are timed per rank beside the stacked drive's; at
+     NCCL world 1 the all_reduce's host time is profiled (cProfile and
+     torch.profiler's CPU activity).
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -1558,49 +1569,97 @@ def phase11_complex(ht, dev, R8, PL, N_sc, timer, card, times):
 # ---- phase 12: shards on separate processes -----------------------------------
 
 DIST_WORLD = 4          # gloo ranks sharing the card in arrangement (b)
-DIST_DEADLINE_S = 300   # each arrangement's spawn, set-up and drive
-# rank results held to the stacked run bit for bit: data movement and the
-# K1/K3 products (the same kernel on the same shard's tables)
-DIST_EXACT = ("lap.y.local", "lap_f32.y.local", "lap.y.full",
-              "lap_f32.y.full", "N.y.local", "lap.exchange.local",
-              "lap_f32.exchange.local", "random8.exchange.local",
-              "power_law.exchange.local", "N.exchange.local")
+DIST_DEADLINE_S = 400   # each arrangement's spawn, set-up and drive
+# rank results held to the stacked run bit for bit besides the exchanges
+# and the products of K1 and K3 (the same kernel on the same shard's
+# tables): the moved values of the ridge assembly
+DIST_MOVED = ("ridge.At.local", "ridge.At_c128.local", "ridge.triu.local",
+              "ridge.diag.local")
 DIST_ENGINES = {"lap": "dia", "lap_f32": "dia", "random8": "ell",
-                "power_law": "ell", "N": "resident"}
+                "power_law": "ell", "N": "resident", "helm": "dia",
+                "random8_c128": "ell", "N_c128": "resident"}
+# the ridge's checks against scipy in every rank: the largest relative
+# error each may have
+DIST_RIDGE_TOL = {"N_rel_err": 1e-12, "solve_res": RIDGE_RES_TOL,
+                  "cg_rel_err": RIDGE_CG_RTOL, "Ax_rel_err": 1e-12}
+
+
+def dist_engine(name, world):
+    """The SpMV engine of ``card``'s product ``name`` on ``world`` shards:
+    c128 N on one shard gathers all 16384 x 16 bytes of x, over K3's
+    shared-memory cap, and takes K2 (as in phase 11)."""
+    if name == "N_c128" and world == 1:
+        return "ell"
+    return DIST_ENGINES[name]
+
+
+def dist_exact(name, ref):
+    """Whether ``card``'s result ``name`` must equal the stacked run's bit
+    for bit: data movement, and the products whose engine is K1 or K3."""
+    prod, _, rest = name.partition(".")
+    return name in DIST_MOVED or ".exchange." in name or (
+        rest.startswith("y.") and str(ref[f"card.{prod}.engine"])
+        in ("dia", "resident"))
 
 
 def dist_held(ranks, ref, what):
     """Each rank's results against the stacked run at the same S (rank r's
-    rows against row r): DIST_EXACT keys bit for bit, K2's products, the
-    dots, the CG iterates and residuals and the solves to K2_RTOL of their
-    type (the tail's atomics and the reductions sum in another order).
-    Returns the largest error of each kind."""
+    rows against row r): data movement and the K1/K3 products bit for bit
+    (``dist_exact``), K2's products, the sums (SpGEMM, the additions),
+    the dots, the CG iterates and residuals and the solves to K2_RTOL of
+    their type (the tail's atomics and the reductions sum in another
+    order); and each rank's ridge checks against scipy. Returns the
+    largest error of each kind."""
     from hpclinalg_torch.tools.dist_checks import LAUNCH_COUNTERS
 
+    world = len(ranks)
     errs = {}
     for r, out in enumerate(ranks):
         check(int(out["meta.nlocal"]) == 1 and not bool(out["meta.jax"])
               and int(out["card.solve.bs.entries"]) == 1,
               f"{what} rank {r}: one shard, no JAX, one backslash entry")
-        for name, engine in DIST_ENGINES.items():
+        for name in DIST_ENGINES:
+            engine = dist_engine(name, world)
             check(str(out[f"card.{name}.engine"]) == engine
                   == str(ref[f"card.{name}.engine"]),
                   f"{what} rank {r}: {name} takes the {engine} engine")
+        check(str(out["card.ridge.spgemm.engine"]) == "pairs"
+              == str(ref["card.ridge.spgemm.engine"])
+              and int(out["card.ridge.spgemm.nchunks"])
+              == int(ref["card.ridge.spgemm.nchunks"]),
+              f"{what} rank {r}: At @ A takes the pair engine in "
+              f"{int(out['card.ridge.spgemm.nchunks'])} chunk(s), as the "
+              "stacked run")
+        check(bool(out["card.check.ridge_N_pattern"])
+              and bool(out["card.check.ridge_refit_reused"]),
+              f"{what} rank {r}: N = At @ A + lambda I has scipy's pattern; "
+              "the refit reused every plan")
+        for key, tol in DIST_RIDGE_TOL.items():
+            got = float(out[f"card.check.ridge_{key}"])
+            check(got <= tol, f"{what} rank {r}: ridge {key} {got:.3e} "
+                  f"(<= {tol:g})")
+        ok, err = close(torch.from_numpy(out["card.ridge.C2.local"]),
+                        torch.from_numpy(2.25 * out["card.ridge.C.local"]),
+                        1e-12)
+        check(ok, f"{what} rank {r}: the refit's At @ A is 2.25 C, "
+              f"max_abs_err {err:.3e}")
         for key, want in ref.items():
             if not key.startswith("card.") or key.startswith(
-                    ("card.time.", "card.launches.", "card.secs.")) \
+                    ("card.time.", "card.launches.", "card.secs.",
+                     "card.check.", "card.profile.")) \
                     or want.dtype.kind not in "fc":
                 continue
             got = out[key]
             if key.endswith(".local"):
                 want = want[r: r + 1]
             name = key[len("card."):]
-            if name in DIST_EXACT:
+            if dist_exact(name, ref):
                 ok = np.array_equal(got, want)
                 err = float(np.max(np.abs(got - want))) if got.size else 0.0
                 rule = "bit for bit"
             else:
-                dt = torch.float32 if got.dtype == np.float32 \
+                dt = torch.float32 if got.dtype in (np.float32,
+                                                    np.complex64) \
                     else torch.float64
                 ok, err = close(torch.from_numpy(np.atleast_1d(got)),
                                 torch.from_numpy(np.atleast_1d(want)),
@@ -1626,14 +1685,19 @@ def phase12_dist(ht, dev, card, times):
     arrangement, not a deployment); (c) NCCL at world = device count when
     there are two cards or more. Each rank is held against the same body
     run stacked at that S in this process, and prints one JSON line a
-    arrangement with the stacked step beside it. Returns each kernel's
-    per-rank launches by arrangement."""
+    arrangement with the stacked run's times beside its ranks' (the CG
+    step, the exchange, the ridge's first and cached transpose, SpGEMM
+    and additions) and, at NCCL world 1, prints where the host time of an
+    ``all_reduce`` goes (cProfile). Returns each kernel's per-rank
+    launches by arrangement."""
     from hpclinalg_torch.parallel.launch import run_ranks
     from hpclinalg_torch.tools import dist_checks as dc
 
-    kw = {"k": K, "n": N, "ridge": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA),
-          "k_solve": DEV_K, "seed": SEED}
-    mats = dc.card_matrices(K, N, kw["ridge"], SEED)
+    kw = {"k": K, "n": N,
+          "ridge_shape": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA),
+          "k_solve": DEV_K_SMALL, "ridge_steps": RIDGE_CG_STEPS,
+          "seed": SEED}
+    mats = dc.card_matrices(K, N, kw["ridge_shape"], SEED)
     count = torch.cuda.device_count()
     arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
     if count >= 2:
@@ -1657,25 +1721,32 @@ def phase12_dist(ht, dev, card, times):
         secs = time.perf_counter() - t0
         errs = dist_held(ranks, refs[world], what)
         ref = refs[world]
-        per_rank = {k: [float(r[f"card.time.{k}"]) for r in ranks]
-                    for k in ("cg_step_ms", "cg_host_enqueue_ms",
-                              "exchange_random8_ms", "all_reduce_ms",
-                              "all_reduce_host_ms", "dot_host_ms",
-                              "all_to_all_64k_ms")}
+        per_rank = {k[len("card.time."):]: [float(r[k]) for r in ranks]
+                    for k in ranks[0] if k.startswith("card.time.")}
+        stacked = {f"stacked_S{world}_{k[len('card.time.'):]}": float(v)
+                   for k, v in ref.items() if k.startswith("card.time.")}
         key = f"{transport}_world{world}"
         for k in dc.LAUNCH_COUNTERS:
             dist_launches[k][key] = [int(r[f"card.launches.{k}"])
                                      for r in ranks]
+        if transport == "nccl" and world == 1:
+            prof = json.loads(str(ranks[0]["card.profile.all_reduce"]))
+            print(f"  all_reduce of a 0-d tensor at NCCL world 1, host time "
+                  f"under cProfile: {prof['profiled_us_per_call']:.1f} us a "
+                  f"call (unprofiled {per_rank['all_reduce_host_ms'][0]:.4f}"
+                  f" ms)  [{card}]", flush=True)
+            for where, us, calls in prof["self_us_per_call"]:
+                print(f"    {us:8.2f} us  {calls:g} calls  {where}",
+                      flush=True)
+            print(f"  the same under torch.profiler (CPU activity): "
+                  f"{prof['torch_profiled_us_per_call']:.1f} us a call; "
+                  "operators by their own CPU time:", flush=True)
+            for name, us, calls in prof["op_self_us_per_call"]:
+                print(f"    {us:8.2f} us  {calls:g} calls  {name}",
+                      flush=True)
+            times["phase12_all_reduce_profile"] = prof
         record = {"phase12": key, "card": card, "seconds": secs,
-                  **per_rank,
-                  f"stacked_S{world}_cg_step_ms":
-                      float(ref["card.time.cg_step_ms"]),
-                  f"stacked_S{world}_cg_host_enqueue_ms":
-                      float(ref["card.time.cg_host_enqueue_ms"]),
-                  f"stacked_S{world}_exchange_random8_ms":
-                      float(ref["card.time.exchange_random8_ms"]),
-                  f"stacked_S{world}_dot_host_ms":
-                      float(ref["card.time.dot_host_ms"]),
+                  **per_rank, **stacked,
                   "launches": {k: dist_launches[k][key]
                                for k in dc.LAUNCH_COUNTERS},
                   "rank_secs": {k[len("card.secs."):]: [

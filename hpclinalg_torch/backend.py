@@ -21,7 +21,7 @@ communication, as the JAX package builds them on its single controller.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -119,6 +119,11 @@ class Backend:
         sh = self.shards
         return self.tensor(np.asarray(host_stack)[sh.start: sh.stop], dtype)
 
+    def with_dtype(self, dtype) -> "Backend":
+        """This backend with another element dtype, on the same device and
+        group (ref: retype_backend, backends.jl:482)."""
+        return replace(self, dtype=dtype)
+
     @property
     def complex_capable(self) -> bool:
         """Complex dtypes are held natively on every torch device."""
@@ -165,11 +170,17 @@ def backends_compatible(a: Backend, b: Backend) -> bool:
             and a.index_dtype == b.index_dtype and a.group is b.group)
 
 
-def backend_auto(nshards: int = 1, dtype=np.float64, index_dtype=np.int32,
-                 device=None, solver: str = "multifrontal") -> Backend:
-    """Backend on ``device``, by default the current CUDA device. Raises
-    when ``device`` is None and there is no CUDA device: the port runs on
-    the CPU only when the caller asks for it (``device="cpu"``)."""
+def backend_auto(nshards: int | None = None, dtype=np.float64,
+                 index_dtype=np.int32, solver: str = "multifrontal",
+                 device=None) -> Backend:
+    """``nshards`` shards stacked on ``device``, by default the current
+    CUDA device; ``nshards=None`` is one shard, as the JAX package's mesh
+    over a one-device host. The parameters are the JAX package's, with
+    ``device`` for its ``platform``. Raises when ``device`` is None and
+    there is no CUDA device: the port runs on the CPU only when the
+    caller asks for it (``device="cpu"``)."""
+    if nshards is None:
+        nshards = 1
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("backend_auto: no CUDA device; pass "

@@ -126,6 +126,9 @@ class DistDenseMatrix:
         HPCLinearAlgebra.jl:871-930). Returns a writable copy."""
         return gather_to_host(self.data, self.row_partition, self.backend)
 
+    # no host cache here, so the read-only and writable paths coincide
+    to_numpy_ro = to_numpy
+
     def _like(self, data) -> "DistDenseMatrix":
         return DistDenseMatrix(data, self.row_partition, self.ncols,
                                self.backend, self.col_partition)

@@ -5,13 +5,18 @@ algebra, sparse.jl:2318-2379, vectors.jl:738, dense.jl:952-982):
 ``Aᵀ @ Bᵀ = (B @ A)ᵀ`` stays lazy; ``Aᵀ @ B``, ``A @ Bᵀ`` and ``Aᵀ @ x``
 materialise the transpose, except a dense ``Dᵀ @ x``, which sums the
 shards' partial products without materialising (``rmatvec``); right
-division ``vᵀ / A`` solves the transposed system.
+division ``vᵀ / A`` solves the transposed system. On a process group
+each of these runs as its stacked form does (the transpose's exchange,
+the host solve on rank 0, ``vᵀ w`` all-reduced), except the dense
+``Dᵀ @ x``: dense containers do not run on a group yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .parallel import comm
 
 
 def _is_scalar(o) -> bool:
@@ -22,7 +27,6 @@ class LazyTranspose:
     __array_priority__ = 130
 
     def __init__(self, parent):
-        parent.backend.require_stacked("a lazy transpose (lazy.py)")
         self.parent = parent
 
     @property
@@ -63,7 +67,8 @@ class LazyTranspose:
                 # transpose(v) @ w — plain (non-conjugating) inner product
                 w = p._aligned(o)
                 dt = torch.promote_types(p.data.dtype, w.data.dtype)
-                return torch.sum(p.data.to(dt) * w.data.to(dt))
+                return comm.all_reduce(p.backend, torch.sum(
+                    p.data.to(dt) * w.data.to(dt)))
             if isinstance(o, (DistSparseMatrix, DistDenseMatrix)):
                 return LazyTranspose(o.T @ p)       # vᵀ A = (Aᵀ v)ᵀ
             if isinstance(o, LazyTranspose):
@@ -71,6 +76,8 @@ class LazyTranspose:
             return NotImplemented
         if isinstance(o, DistVector):
             if isinstance(p, DistDenseMatrix):
+                p.backend.require_stacked("the dense Dᵀ @ x (lazy.py, "
+                                          "DistDenseMatrix.rmatvec)")
                 return p.rmatvec(o)  # no materialisation (dense.jl:1000-1261)
             return self.materialize() @ o
         if isinstance(o, LazyTranspose):

@@ -5,7 +5,9 @@ sparse.jl:1072-1454; IdentityAdditionPlan, sparse.jl:3704-4060). The union
 of the two patterns is one ``np.unique`` over (row, col) keys per shard;
 its index maps are memoized by both structural hashes. Execution is two
 scatter-adds into C's values. Mismatched row partitions repartition the
-right operand first, so no shard reads another's rows.
+right operand first, so no shard reads another's rows. On a process
+group the plans stay global host data and each rank uploads its own rows
+of the index tables.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class AdditionPlan:
             for s, m in enumerate(maps):
                 out[s, : len(m)] = m
             check_index(name, out, out_pad, sentinel=out_pad)
-            return A.backend.tensor(out)
+            return A.backend.shard_tensor(out)
 
         self.mapA = pack("addition mapA", mapsA, stA.NNZpad)
         self.mapB = pack("addition mapB", mapsB, stB.NNZpad)
@@ -75,7 +77,6 @@ def get_addition_plan(A, B) -> AdditionPlan:
 
 def add(A, B, alpha=1, beta=1):
     """alpha*A + beta*B (ref: Base.:+/-, sparse.jl:1405/1454)."""
-    A.backend.require_stacked("A + B (ops/addition.py)")
     from ..sparse import DistSparseMatrix
 
     if A.shape != B.shape:
@@ -84,7 +85,7 @@ def add(A, B, alpha=1, beta=1):
         B = B.repartition(A.row_partition)
     plan = get_addition_plan(A, B)
     dt = scalar_dtype(torch.promote_types(A.dtype, B.dtype), alpha, beta)
-    S, NZ = A.backend.nshards, plan.structure.NNZpad
+    S, NZ = A.backend.nlocal, plan.structure.NNZpad
     out = torch.zeros((S, NZ + 1), dtype=dt, device=A.nzval.device)  # +drop
     out.scatter_add_(1, plan.mapA, alpha * A.nzval.to(dt))
     out.scatter_add_(1, plan.mapB, beta * B.nzval.to(dt))
@@ -94,8 +95,8 @@ def add(A, B, alpha=1, beta=1):
 def add_identity(A, lam=1.0):
     """A + lam*I (ref: IdentityAdditionPlan, sparse.jl:3704-4060). Fast path
     when every diagonal entry exists structurally: a pure value update that
-    shares A's structure (and therefore every cached plan)."""
-    A.backend.require_stacked("add_identity (ops/addition.py)")
+    shares A's structure (and therefore every cached plan). The path is
+    chosen from the global structure, the same on every rank."""
     from ..sparse import DistSparseMatrix
     from .sparse_build import speye
 
@@ -113,7 +114,7 @@ def add_identity(A, lam=1.0):
         for s, p in enumerate(pos):
             arr[s, : len(p)] = p
         check_index("identity positions", arr, st.NNZpad, sentinel=st.NNZpad)
-        return A.backend.tensor(arr)
+        return A.backend.shard_tensor(arr)
 
     pos = cached_plan("identity_addition_plan", (A.hash, A.backend.key), build)
     dt = scalar_dtype(A.dtype, lam)
@@ -121,7 +122,7 @@ def add_identity(A, lam=1.0):
         I = speye(A.m, A.backend, row_partition=st.row_partition,
                   col_partition=st.col_partition, dtype=dt)
         return add(A, I, 1, lam)
-    S, NZ = A.backend.nshards, st.NNZpad
+    S, NZ = A.backend.nlocal, st.NNZpad
     out = torch.cat([A.nzval.to(dt), A.nzval.new_zeros((S, 1), dtype=dt)], 1)
     out.scatter_add_(1, pos, torch.full(pos.shape, lam, dtype=dt,
                                         device=out.device))

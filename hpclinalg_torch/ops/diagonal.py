@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``hpclinalg/ops/diagonal.py`` (ref: diag(A, k)
 sparse.jl:2801, triu/tril sparse.jl:2874/2971, dropzeros sparse.jl:2755).
-Structure filtering is host-side; value movement is a cached ExchangePlan.
+Structure filtering is host-side; value movement is a cached ExchangePlan
+(on a process group, ``diag``'s crosses ranks in one ``all_to_all_single``;
+``triu`` and ``tril`` stay on each rank).
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from ..parallel.exchange import ExchangePlan
 def diag(A, k: int = 0):
     """k-th diagonal as a DistVector of length min(m, n-k) (k>=0) or
     min(m+k, n) (k<0), matching Julia's diag (ref sparse.jl:2801)."""
-    A.backend.require_stacked("diag (ops/diagonal.py)")
     from ..vector import DistVector
 
     m, n = A.shape
@@ -86,7 +87,6 @@ def _filter_structure(A, keep_fn):
 
 
 def triu(A, k: int = 0):
-    A.backend.require_stacked("triu (ops/diagonal.py)")
     from ..sparse import DistSparseMatrix
 
     st, plan = cached_plan("triu_plan", (A.hash, k, A.backend.key),
@@ -95,7 +95,6 @@ def triu(A, k: int = 0):
 
 
 def tril(A, k: int = 0):
-    A.backend.require_stacked("tril (ops/diagonal.py)")
     from ..sparse import DistSparseMatrix
 
     st, plan = cached_plan("tril_plan", (A.hash, k, A.backend.key),
@@ -106,11 +105,15 @@ def tril(A, k: int = 0):
 def dropzeros(A, tol: float = 0.0):
     """Drop stored values with |v| <= tol (ref sparse.jl:2755). The result's
     structure depends on the values, so it reads them back to the host and
-    is not cached."""
-    A.backend.require_stacked("dropzeros (ops/diagonal.py)")
+    is not cached. It is the one plan of the sparse algebra whose build
+    communicates: on a process group every rank needs the same global
+    structure but holds only its own values, so the (NNZpad-wide) shards
+    are all-gathered first, in one collective, and every rank runs the same
+    host code on all of them."""
+    from ..parallel import comm
     from ..sparse import DistSparseMatrix, csr_from_rows
 
-    nz = A.nzval.detach().cpu().numpy()
+    nz = comm.all_gather_rows(A.backend, A.nzval).detach().cpu().numpy()
     st = A.structure
     parts = []
     for s, (r, c) in enumerate(st.global_coo):

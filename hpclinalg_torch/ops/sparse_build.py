@@ -2,7 +2,11 @@
 
 Port of the JAX package's ``hpclinalg/ops/sparse_build.py`` (ref: spdiagm
 family, sparse.jl:3304-3605, with the cached-structure path for the main
-diagonal, sparse.jl:3544 and HPCLinearAlgebra.jl:150-156).
+diagonal, sparse.jl:3544 and HPCLinearAlgebra.jl:150-156). Every
+structure is built from global host data and the seed, so on a process
+group no builder communicates: each rank builds the same structure and
+keeps its own shard's values (a diagonal's values move from its vector
+by an ExchangePlan).
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ from ..parallel.exchange import ExchangePlan
 
 def speye(n: int, backend, row_partition=None, col_partition=None, dtype=None):
     """Identity matrix with the given row partition."""
-    backend.require_stacked("speye (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix
 
     rp = (validate_partition(row_partition, n) if row_partition is not None
@@ -62,7 +65,6 @@ def _spdiagm_device(pairs, m: int, n: int, backend):
     offsets, lengths, partitions); the values never touch the host — each
     diagonal's vector data is scattered into the output values by a cached
     ExchangePlan. Repeated offsets sum, as in Julia."""
-    backend.require_stacked("spdiagm (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix, SparseStructure, compress_cols, \
         csr_from_rows
 
@@ -129,7 +131,8 @@ def _spdiagm_device(pairs, m: int, n: int, backend):
     dt = pairs[0][1].dtype
     for _k, v in pairs[1:]:
         dt = torch.promote_types(dt, v.dtype)
-    nz = torch.zeros((S, st.NNZpad), dtype=dt, device=backend.device)
+    nz = torch.zeros((backend.nlocal, st.NNZpad), dtype=dt,
+                     device=backend.device)
     for (_k, v), plan in zip(pairs, plans):
         nz = plan.apply(v.data.to(dt), base=nz, add=True)
     return DistSparseMatrix(st, nz, backend)
@@ -140,7 +143,6 @@ def build_diag(v, n: int):
     the structure depends only on the partition, so it is cached (ref:
     _diag_structure_cache, HPCLinearAlgebra.jl:150-156), and the values are
     v's own slots, cut or zero-padded to the value width."""
-    v.backend.require_stacked("spdiagm (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix, SparseStructure
     from .cuda_dia import pad_trunc
 
@@ -162,7 +164,6 @@ def build_diag(v, n: int):
 
 def spzeros(m: int, n: int, backend, row_partition=None, dtype=None):
     """All-zero sparse matrix (ref: HPCLinearAlgebra.jl:1430-1467)."""
-    backend.require_stacked("spzeros (ops/sparse_build.py)")
     from ..sparse import DistSparseMatrix
 
     rp = (validate_partition(row_partition, m) if row_partition is not None
@@ -176,8 +177,8 @@ def spzeros(m: int, n: int, backend, row_partition=None, dtype=None):
 def sprand_dist(m: int, n: int, density: float, backend, dtype=None,
                 seed: int = 0):
     """Distributed random sparse matrix; the pattern and values are numpy's
-    for ``seed``, the same as the JAX package's."""
-    backend.require_stacked("sprand_dist (ops/sparse_build.py)")
+    for ``seed``, the same as the JAX package's (and on every rank of a
+    group)."""
     import scipy.sparse as sp
 
     from ..sparse import DistSparseMatrix

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``hpclinalg/ops/sparse_repartition.py`` (ref:
 SparseRepartitionPlan, sparse.jl:4098-4573): the structure is re-sliced on
-the host and the values move by one static ExchangePlan.
+the host and the values move by one static ExchangePlan: on a process
+group one ``all_to_all_single`` of the stored values.
 """
 
 from __future__ import annotations
@@ -58,8 +59,6 @@ def _build(A, p2):
 
 def repartition_sparse(A, new_row_partition):
     """Ref: repartition (sparse.jl:4573)."""
-    A.backend.require_stacked("repartition of a sparse matrix "
-                              "(ops/sparse_repartition.py)")
     from ..sparse import DistSparseMatrix
 
     p2 = validate_partition(new_row_partition, A.m)

@@ -19,6 +19,12 @@ engines, with the JAX package's thresholds:
 
 The plan is memoized by both structural hashes: repeated products with the
 same patterns only move values.
+
+On a process group the symbolic phase stays global host data, so every
+rank picks the same engine and the same chunk count and calls the same
+collectives (B's values arrive by the ExchangePlan's ``all_to_all_single``);
+each rank keeps and uploads only its own rows of the pair, diagonal and
+densify tables.
 """
 
 from __future__ import annotations
@@ -89,8 +95,11 @@ class SpGEMMPlan:
         self.value_plan = ExchangePlan(be, send, recv, self.gpad)
 
         # --- flop-pair expansion and C's structure, per shard ----------------
+        # C's structure is global; the pair lists are kept for this
+        # process's shards only
         indptr, col_indices, colval = [], [], []
         pairsA, pairsB, pairsO = [], [], []
+        max_pairs = 0
         for s in range(S):
             goff = goffs[s]
             j_comp = stA.colval[s].astype(np.int64)
@@ -106,17 +115,18 @@ class SpGEMMPlan:
             ci, cv = compress_cols(uniq % ncB)
             col_indices.append(ci)
             colval.append(cv)
-            pairsA.append(pA)
-            pairsB.append(pB)
-            pairsO.append(inv.reshape(-1))
+            max_pairs = max(max_pairs, len(pA))
+            if s in be.shards:
+                pairsA.append(pA)
+                pairsB.append(pB)
+                pairsO.append(inv.reshape(-1))
         self.structure = SparseStructure(stA.row_partition, stB.col_partition,
                                          indptr, col_indices, colval, be)
         NZc = self.structure.NNZpad
-        max_pairs = max(len(p) for p in pairsA)
         Ppad = round_up(max(max_pairs, 1))
 
         def pack(lists, fill):
-            out = np.full((S, Ppad), fill, dtype=np.int32)
+            out = np.full((be.nlocal, Ppad), fill, dtype=np.int32)
             for s, lst in enumerate(lists):
                 out[s, : len(lst)] = lst
             return out
@@ -158,24 +168,27 @@ class SpGEMMPlan:
                         and stA.Lrow * ncB <= DENSE_SPGEMM_ELEMS)
         if self.densify:
             self.ncolsB, self.GA = ncB, GA
-            gm = np.full((S, self.gpad), GA * ncB, dtype=np.int64)  # drop
-            for s in range(S):
+            stC = self.structure
+            gm = np.full((be.nlocal, self.gpad), GA * ncB,
+                         dtype=np.int64)  # drop
+            take = np.full((be.nlocal, NZc), stA.Lrow * ncB, dtype=np.int64)
+            for i, s in enumerate(be.shards):
                 j = np.repeat(np.arange(len(gath_rows[s]), dtype=np.int64),
                               gath_rows[s])
-                gm[s, : len(j)] = j * ncB + gath_cols[s]
+                gm[i, : len(j)] = j * ncB + gath_cols[s]
+                r, c = stC.global_coo[s]
+                take[i, : stC.nnz_local[s]] = \
+                    (r - stC.row_partition[s]) * ncB + c
             check_index("spgemm gathered_to_dense", gm, GA * ncB,
                         sentinel=GA * ncB)
-            self.gathered_to_dense = be.tensor(gm)
-            stC = self.structure
-            take = np.full((S, NZc), stA.Lrow * ncB, dtype=np.int64)
-            for s, (r, c) in enumerate(stC.global_coo):
-                take[s, : stC.nnz_local[s]] = (r - stC.row_partition[s]) * ncB + c
             check_index("spgemm c_dense_take", take, stA.Lrow * ncB + 1)
+            self.gathered_to_dense = be.tensor(gm)
             self.c_dense_take = be.tensor(take)
 
     def _chunk_tables(self, sl):
-        """Host tables of the pair slots ``sl``: pairA, pairB (S, P) int32
-        and pairO as flat int64 indices into C's (S, NNZpad+1) values."""
+        """Host tables of the pair slots ``sl``: pairA, pairB (nlocal, P)
+        int32 and pairO as flat int64 indices into C's (nlocal, NNZpad+1)
+        values."""
         pa, pb, po = (np.ascontiguousarray(t[:, sl]) for t in self._pair_np)
         S = pa.shape[0]
         flat = po.astype(np.int64) + (np.arange(S, dtype=np.int64)
@@ -248,10 +261,12 @@ class DiaSpGEMMPlan:
         # C value (storage order) -> flat dC slot (offset index * LC + row)
         LC = c_structure.Lrow
         OCa = np.asarray(OC, np.int64)
-        take = np.full((S, c_structure.NNZpad), len(OC) * LC, dtype=np.int64)
-        for s, (r, c) in enumerate(c_structure.global_coo):
+        take = np.full((be.nlocal, c_structure.NNZpad), len(OC) * LC,
+                       dtype=np.int64)
+        for i, s in enumerate(be.shards):
+            r, c = c_structure.global_coo[s]
             oi = np.searchsorted(OCa, c - r)
-            take[s, : c_structure.nnz_local[s]] = \
+            take[i, : c_structure.nnz_local[s]] = \
                 oi * LC + (r - c_structure.row_partition[s])
         check_index("dia spgemm c_take", take, len(OC) * LC + 1)
         self.c_take = be.tensor(take)
@@ -275,16 +290,18 @@ def _global_offsets(st):
 
 
 def _global_dia_scatter(st, offsets, backend, row_major: bool):
-    """(S, NNZpad) map from storage order into a flat diagonal table:
-    offset-major (o_index*Lrow + row) or row-major (row*O + o_index); the
-    padding goes to the drop slot O*Lrow."""
+    """(nlocal, NNZpad) map from storage order into a flat diagonal table
+    of this process's shards: offset-major (o_index*Lrow + row) or
+    row-major (row*O + o_index); the padding goes to the drop slot
+    O*Lrow."""
     O = len(offsets)
     offa = np.asarray(offsets, np.int64)
-    out = np.full((backend.nshards, st.NNZpad), O * st.Lrow, dtype=np.int64)
-    for s, (r, c) in enumerate(st.global_coo):
+    out = np.full((backend.nlocal, st.NNZpad), O * st.Lrow, dtype=np.int64)
+    for i, s in enumerate(backend.shards):
+        r, c = st.global_coo[s]
         oi = np.searchsorted(offa, c - r)
         rl = r - st.row_partition[s]
-        out[s, : st.nnz_local[s]] = (rl * O + oi) if row_major \
+        out[i, : st.nnz_local[s]] = (rl * O + oi) if row_major \
             else (oi * st.Lrow + rl)
     check_index("dia spgemm scatter", out, O * st.Lrow, sentinel=O * st.Lrow)
     return backend.tensor(out)
@@ -316,7 +333,7 @@ def _instance_dia_table(M, offsets, row_major, scatter):
     if hit is None:
         st = M.structure
         O, L = len(offsets), st.Lrow
-        S = M.backend.nshards
+        S = M.backend.nlocal
         hit = _scatter_table(scatter, M.nzval, O * L)
         hit = hit.reshape(S, L, O) if row_major else hit.reshape(S, O, L)
         cache[key] = hit
@@ -351,35 +368,53 @@ def get_spgemm_plan(A, B) -> SpGEMMPlan:
     return cached_plan("matrix_plan", key, lambda: SpGEMMPlan(A, B))
 
 
+def _densify_spmv_plan(A, B, plan):
+    """A's SpMV plan on B's row partition when the densify engine takes
+    ``A @ B`` (its dense block of A is the SpMV densify engine's), else
+    None."""
+    from .spmv import _get_plan
+
+    if not plan.densify:
+        return None
+    sp_plan = _get_plan(A, B.row_partition, B.row_partition_hash)
+    return sp_plan if sp_plan.offsets is None and sp_plan.densify else None
+
+
+def engine(A, B) -> str:
+    """The engine ``A @ B`` runs on: "densify", "dia" or "pairs". It is
+    chosen from global host data, so every rank of a group takes the same
+    one (and, for "pairs", the same ``nchunks``)."""
+    plan = get_spgemm_plan(A, B)
+    if _densify_spmv_plan(A, B, plan) is not None:
+        return "densify"
+    return "dia" if plan.dia.ok else "pairs"
+
+
 def spgemm(A, B):
     """C = A @ B (ref: Base.:*, sparse.jl:991-1059). C inherits A's row
     partition and B's column partition."""
-    A.backend.require_stacked("SpGEMM (ops/spgemm.py)")
     from ..sparse import DistSparseMatrix
-    from ..vector import DistVector
-    from .spmv import _dense_block, get_spmv_plan
+    from .spmv import _dense_block
 
     if A.ncols != B.m:
         raise ValueError(f"dimension mismatch: {A.shape} @ {B.shape}")
     plan = get_spgemm_plan(A, B)
     dt = torch.promote_types(A.dtype, B.dtype)
-    S = A.backend.nshards
-    if plan.densify:
+    S = A.backend.nlocal
+    sp_plan = _densify_spmv_plan(A, B, plan)
+    if sp_plan is not None:
         # A's dense local block over its compressed columns, shared with
         # (and cached like) the SpMV densify engine
-        x0 = DistVector.zeros(A.ncols, A.backend, partition=B.row_partition)
-        sp_plan = get_spmv_plan(A, x0)
-        if sp_plan.offsets is None and sp_plan.densify:
-            Ad = _dense_block(A, sp_plan).to(dt)
-            GA, ncB = plan.GA, plan.ncolsB
-            bd = Ad.new_zeros((S, GA * ncB + 1))
-            bd.scatter_(1, plan.gathered_to_dense,
-                        plan.value_plan.apply(B.nzval.to(dt)))
-            cd = torch.bmm(Ad, bd[:, : GA * ncB].reshape(S, GA, ncB))
-            flat = torch.cat([cd.reshape(S, -1), Ad.new_zeros((S, 1))], 1)
-            return DistSparseMatrix(plan.structure,
-                                    torch.gather(flat, 1, plan.c_dense_take),
-                                    A.backend)
+        Ad = _dense_block(A, sp_plan).to(dt)
+        GA, ncB = plan.GA, plan.ncolsB
+        bd = Ad.new_zeros((S, GA * ncB + 1))
+        bd.scatter_(1, plan.gathered_to_dense,
+                    plan.value_plan.apply(B.nzval.to(dt)))
+        cd = torch.bmm(Ad, bd[:, : GA * ncB].reshape(S, GA, ncB))
+        flat = torch.cat([cd.reshape(S, -1), Ad.new_zeros((S, 1))], 1)
+        return DistSparseMatrix(plan.structure,
+                                torch.gather(flat, 1, plan.c_dense_take),
+                                A.backend)
     if plan.dia.ok:
         d = plan.dia
         dA = _instance_dia_table(A, d.OA, False, d.dA_scatter)

@@ -332,6 +332,12 @@ def get_spmv_plan(A, x) -> SpMVPlan:
     return _get_plan(A, x.partition, x.partition_hash)
 
 
+def get_vector_plan(A, x) -> ExchangePlan:
+    """The exchange of ``A @ x`` alone: x's entries to each shard's
+    gathered-x buffer (ref: get_vector_plan, sparse.jl:1992)."""
+    return get_spmv_plan(A, x).exchange
+
+
 def get_spmm_plan(A, B) -> SpMVPlan:
     """The plan of ``A @ B`` with a dense B: the SpMV plan of an x on B's
     row partition, whose exchange moves B's rows whole."""

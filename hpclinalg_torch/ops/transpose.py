@@ -4,7 +4,8 @@ Port of the JAX package's ``hpclinalg/ops/transpose.py`` (ref:
 TransposePlan, sparse.jl:1519-1829). The symbolic construction of Aᵀ's CSR
 structure runs on host metadata and gives the JAX package's arrays and
 hash; the value movement is one static ExchangePlan permutation from A's
-storage order into Aᵀ's (K2's gather mode plus ``index_copy_``).
+storage order into Aᵀ's (K2's gather mode plus ``index_copy_``; on a
+process group one ``all_to_all_single`` of the stored values).
 """
 
 from __future__ import annotations
@@ -69,7 +70,6 @@ def materialize_transpose(A):
     """Ref: HPCSparseMatrix{T}(transpose(A)) (sparse.jl:1846-1865), with the
     same bidirectional result caching (``DistSparseMatrix.cached_transpose``:
     the back reference is weak)."""
-    A.backend.require_stacked("transpose (ops/transpose.py)")
     from ..sparse import DistSparseMatrix
 
     At = A.cached_transpose

@@ -373,6 +373,10 @@ class Factorization:
                 x, self.backend, partition=self.A.row_partition, dtype=x.dtype)
         return x
 
+    def solve_transpose(self, b, refine: int | None = None):
+        """Solve Aᵀ x = b: ``solve(b, transpose=True)``."""
+        return self.solve(b, transpose=True, refine=refine)
+
     def solve_matrix(self, B, transpose: bool = False,
                      refine: int | None = None):
         """Blocked multi-RHS solve: ``B`` is a DistDenseMatrix or a host

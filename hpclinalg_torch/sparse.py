@@ -28,8 +28,10 @@ import torch
 
 from .backend import Backend, numpy_dtype, resolve_dtype
 from .config import round_up
+from .hashing import partition_hash
 from .parallel import comm
-from .partition import padded_size, uniform_partition, validate_partition
+from .partition import (padded_size, partition_sizes, uniform_partition,
+                        validate_partition)
 
 
 class SparseStructure:
@@ -108,6 +110,10 @@ class SparseStructure:
         """(nlocal, NNZpad) bool: True on stored values, False on padding."""
         m = np.arange(self.NNZpad)[None, :] < self.nnz_local[:, None]
         return self.backend.shard_tensor(m)
+
+    def local_sizes(self) -> np.ndarray:
+        """Rows of each shard."""
+        return partition_sizes(self.row_partition)
 
     @property
     def shape(self):
@@ -217,6 +223,10 @@ class DistSparseMatrix:
         return self.structure.col_partition
 
     @property
+    def row_partition_hash(self) -> str:
+        return partition_hash(self.structure.row_partition)
+
+    @property
     def shape(self):
         return self.structure.shape
 
@@ -261,14 +271,25 @@ class DistSparseMatrix:
     def from_local_csr(parts, ncols: int, backend: Backend, col_partition=None,
                        dtype=None) -> "DistSparseMatrix":
         """Build from per-shard (indptr, global col indices, values) triples
-        (ref: HPCSparseMatrix_local, sparse.jl:454-525)."""
-        backend.require_stacked("DistSparseMatrix.from_local_csr")
+        (ref: HPCSparseMatrix_local, sparse.jl:454-525). On a group every
+        rank passes every shard's triple, since the structure is global
+        host data, and keeps its own shard's values."""
         st = _structure_from_local_csr([(ip, gj) for ip, gj, _v in parts],
                                        ncols, backend, col_partition)
-        vals = [np.asarray(v) for _ip, _gj, v in parts]
+        return DistSparseMatrix.from_structure(
+            st, [v for _ip, _gj, v in parts], dtype)
+
+    @staticmethod
+    def from_structure(st: SparseStructure, nzval_parts, dtype=None
+                       ) -> "DistSparseMatrix":
+        """A matrix of pattern ``st`` holding each shard's stored values
+        ``nzval_parts[s]`` in storage order; on a group every rank passes
+        every shard's part and keeps its own."""
+        vals = [np.asarray(v) for v in nzval_parts]
+        be = st.backend
         nz = _pad_stack_nzval(vals, st.NNZpad, resolve_dtype(
-            backend, np.result_type(*vals), dtype))
-        return DistSparseMatrix(st, backend.tensor(nz), backend)
+            be, np.result_type(*vals) if vals else be.dtype, dtype))
+        return DistSparseMatrix(st, be.shard_tensor(nz), be)
 
     def with_values(self, nzval: torch.Tensor) -> "DistSparseMatrix":
         """Same pattern, new values — shares structure, hash, and every plan."""

@@ -26,7 +26,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .matrices import banded_design, laplace2d, power_law, random_8
+from .matrices import (banded_design, complex_values, helmholtz, laplace2d,
+                       power_law, random_8)
 
 
 def _np(t) -> np.ndarray:
@@ -180,6 +181,151 @@ def spmv(be, k: int = 12, n: int = 300, seed: int = 3) -> dict:
     return {f"spmv.{k}": _np(v) for k, v in out.items()}
 
 
+# -- the sparse algebra ---------------------------------------------------------------
+
+# SpGEMM engine limits of ``algebra``'s products: the module attributes
+# each product's plan is built under (``patched``)
+SPGEMM_CASES = {"dia": ("L", "L", {}), "densify": ("A", "B", {}),
+                "pairs": ("A", "B", {"DENSE_SPGEMM_ELEMS": 0}),
+                "chunks": ("A", "B", {"DENSE_SPGEMM_ELEMS": 0,
+                                      "PAIR_CAP": 256})}
+
+
+def algebra_inputs(S: int, n: int = 40, seed: int = 7) -> dict:
+    """The host inputs of ``algebra``, for the JAX package too: ``R`` a
+    rectangular random matrix, ``A`` a square one with a full diagonal and
+    ``B`` one of another pattern (more than 32 distinct offsets each, so
+    no product of them takes the DIA engine), ``L`` laplace2d(6), ``Z``
+    A with every third stored value an explicit zero, complex ``Ac`` and
+    ``Bc`` on A's and B's patterns; ``p`` a partition with an empty shard
+    (A, R, L, Z and the vectors), ``pu`` the uniform one (B); x, y on
+    ``p``, ``d1`` and ``d2`` the diagonals of spdiagm's offsets form."""
+    from ..partition import uniform_partition
+
+    rng = np.random.default_rng(seed)
+
+    def rand(m, k, density):
+        return sp.random(m, k, density, format="csr", random_state=rng)
+
+    R = rand(n, n - 7, 0.2)
+    A = (rand(n, n, 0.15) + sp.eye(n)).tocsr()
+    B = rand(n, n, 0.15)
+    Z = A.copy()
+    Z.data[::3] = 0.0
+    L = laplace2d(6)
+    Ac = A.copy()
+    Ac.data = Ac.data + 1j * rng.standard_normal(A.nnz)
+    Bc = B.copy()
+    Bc.data = Bc.data - 0.5j * rng.standard_normal(B.nnz)
+    return {"R": R, "A": A, "B": B, "Z": Z, "L": L, "Ac": Ac, "Bc": Bc,
+            "p": empty_shard_partition(n, S), "pu": uniform_partition(n, S),
+            "pL": empty_shard_partition(L.shape[0], S),
+            "x": rng.standard_normal(n), "y": rng.standard_normal(n),
+            "d1": rng.standard_normal(n - 1), "d2": rng.standard_normal(n - 3)}
+
+
+def algebra(be, n: int = 40, seed: int = 7) -> dict:
+    """The sparse algebra on ``algebra_inputs``: the transpose and its
+    cache both ways, ``A.T @ x``, ``x.T @ A``, ``x.T @ y``, ``x.T / A``,
+    ``A.H``; ``A + B`` on different patterns and partitions, ``A - B``,
+    both paths of ``add_identity``; SpGEMM on each engine
+    (``SPGEMM_CASES``); ``diag(k)`` for k in {0, 1, -1}, ``triu``,
+    ``tril``, ``dropzeros``; the builders, ``from_local_csr``,
+    ``from_structure`` and a sparse repartition; c128 transpose, addition
+    and SpGEMM. A matrix gives its rows (``.local``) and hash, a vector
+    its rows and whole, the SpGEMM cases their engine and chunk count."""
+    import warnings
+
+    import hpclinalg_torch as ht
+    from ..ops import spgemm as spgemm_mod
+
+    inp = algebra_inputs(be.nshards, n, seed)
+    p, pu = inp["p"], inp["pu"]
+    M = {k: ht.DistSparseMatrix.from_scipy(inp[k], be, row_partition=p)
+         for k in ("R", "A", "Z", "Ac")}
+    M["L"] = ht.DistSparseMatrix.from_scipy(inp["L"], be,
+                                            row_partition=inp["pL"])
+    M["B"] = ht.DistSparseMatrix.from_scipy(inp["B"], be, row_partition=pu)
+    M["Bp"] = M["B"].repartition(p)
+    M["Bc"] = ht.DistSparseMatrix.from_scipy(inp["Bc"], be,
+                                             row_partition=pu)
+    x = ht.DistVector.from_global(inp["x"], be, partition=p)
+    y = ht.DistVector.from_global(inp["y"], be, partition=p)
+    d1 = ht.DistVector.from_global(inp["d1"], be)
+    d2 = ht.DistVector.from_global(inp["d2"], be)
+    mats, vecs, out = {}, {}, {}
+
+    Rt = M["R"].T.materialize()
+    mats["transpose"] = Rt
+    sizes = ht.cache_sizes()
+    R3t = (3.0 * M["R"]).transpose_materialized()
+    out.update({"transpose.cached_both_ways":
+                M["R"].T.materialize() is Rt
+                and Rt.transpose_materialized() is M["R"],
+                "transpose.plan_reused": ht.cache_sizes() == sizes
+                and R3t.structure is Rt.structure})
+    mats["transpose_values"] = R3t
+    xr = ht.DistVector.from_global(inp["x"][: M["R"].ncols], be)
+    vecs["At_x"] = M["R"].T @ x
+    vecs["xt_A"] = (x.T @ M["R"]).parent
+    out["xt_y"] = x.T @ y
+    vecs["xt_div_A"] = (x.T / M["A"]).parent
+    vecs["A_x"] = M["R"] @ xr
+    mats["adjoint"] = M["Ac"].H.materialize()
+
+    mats["add"] = M["A"] + M["B"]              # B on another partition
+    mats["sub"] = M["A"] - M["Bp"]             # same partition
+    mats["add_lazy"] = M["A"] + M["Bp"].T
+    fast = M["A"].add_identity(2.5)
+    mats["add_identity_fast"] = fast
+    out["add_identity_fast.shares_structure"] = \
+        fast.structure is M["A"].structure
+    mats["add_identity_slow"] = M["Bp"].add_identity(-1.5)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # the chunk warning
+        for name, (a, b, limits) in SPGEMM_CASES.items():
+            ht.clear_plan_cache("matrix_plan")
+            with patched(spgemm_mod, **limits):
+                plan = spgemm_mod.get_spgemm_plan(M[a], M[b])
+            mats[f"spgemm_{name}"] = M[a] @ M[b]
+            out[f"spgemm_{name}.engine"] = spgemm_mod.engine(M[a], M[b])
+            out[f"spgemm_{name}.nchunks"] = plan.nchunks
+        ht.clear_plan_cache("matrix_plan")
+    mats["spgemm_lazy"] = M["R"].T @ M["A"]
+
+    for k in (0, 1, -1):
+        vecs[f"diag{k}"] = M["L"].diag(k)
+    mats["triu"] = M["A"].triu()
+    mats["tril"] = M["A"].tril(-1)
+    mats["dropzeros"] = M["Z"].dropzeros()
+    mats["dropzeros_tol"] = M["A"].dropzeros(0.5)
+
+    mats["speye"] = ht.speye(n, be, row_partition=p)
+    mats["spdiagm"] = ht.spdiagm(x)
+    mats["spdiagm_offsets"] = ht.spdiagm((0, x), (1, d1), (-3, d2))
+    mats["spzeros"] = ht.spzeros(n, n + 3, be, row_partition=p)
+    mats["sprand_dist"] = ht.sprand_dist(n, n, 0.2, be, seed=seed)
+    A_sc = inp["A"]
+    parts = [(A_sc[p[s]: p[s + 1]].indptr, A_sc[p[s]: p[s + 1]].indices,
+              A_sc[p[s]: p[s + 1]].data) for s in range(be.nshards)]
+    mats["from_local_csr"] = ht.DistSparseMatrix.from_local_csr(parts, n, be)
+    mats["from_structure"] = ht.DistSparseMatrix.from_structure(
+        M["A"].structure, [2.0 * d for _ip, _j, d in parts])
+    mats["repartition"] = M["A"].repartition(pu)
+
+    mats["c128_transpose"] = M["Ac"].T.materialize()
+    mats["c128_add"] = M["Ac"] + M["Bc"]
+    mats["c128_spgemm"] = M["Ac"] @ M["Bc"].repartition(p)
+    for name, m in mats.items():
+        out[f"{name}.local"] = m.nzval
+        out[f"{name}.hash"] = m.hash
+    for name, v in vecs.items():
+        out[f"{name}.local"] = v.data
+        out[f"{name}.full"] = v.to_numpy()
+    return {f"alg.{k}": _np(v) for k, v in out.items()}
+
+
 # -- CG and the host solve ---------------------------------------------------------
 
 def cg(be, k: int = 16, steps: int = 20, seed: int = 5) -> dict:
@@ -223,7 +369,8 @@ def solves(be, k: int = 10, seed: int = 4) -> dict:
            "ldlt_host.full": F.solve(bh), "root": F.sym is not None,
            "native": F.native is not None,
            "lu.full": Fu.solve(b).to_numpy(),
-           "lu_t.full": Fu.solve(b, transpose=True).to_numpy()}
+           "lu_t.full": Fu.solve(b, transpose=True).to_numpy(),
+           "lu_st.full": Fu.solve_transpose(b).to_numpy()}
     ht.clear_plan_cache("backslash")
     x1 = ht.solve(A, b)
     F1 = next(iter(ht.BackslashCache._cache().values()))
@@ -247,8 +394,8 @@ def solves(be, k: int = 10, seed: int = 4) -> dict:
 
 def utilities(be, n: int = 37, k: int = 5, seed: int = 6) -> dict:
     """comm_size, comm_rank, io0, to_backend both ways between the group
-    and a stacked one-shard backend on this process's device, and
-    from_reference of stacked host state."""
+    and a stacked one-shard backend on this process's device,
+    from_reference of stacked host state, and ``with_dtype``."""
     import hpclinalg_torch as ht
     from ..vector import _stack
 
@@ -279,7 +426,11 @@ def utilities(be, n: int = 37, k: int = 5, seed: int = 6) -> dict:
            "sparse_to_one.values": As.host_values(),
            "sparse_back.local": ht.to_backend(As, be).nzval,
            "ref_vec.local": v.data, "ref_mat.local": M.nzval,
-           "ref_mat.same_hash": M.hash == A.hash}
+           "ref_mat.same_hash": M.hash == A.hash,
+           "with_dtype.keeps_group": be.with_dtype(np.float32).group
+           is be.group and be.with_dtype(np.float32).rank == be.rank,
+           "with_dtype.f32": ht.DistVector.from_global(
+               xh, be.with_dtype(np.float32), partition=p).data}
     return {f"util.{k}": _np(v) for k, v in out.items()}
 
 
@@ -301,22 +452,6 @@ def guarded_ops(be) -> dict:
         A[0:2, 0:2] = 1.0
 
     return {
-        "transpose": lambda: A.transpose_materialized(),
-        "lazy_matrix": lambda: A.T, "lazy_vector": lambda: x.T,
-        "adjoint": lambda: A.H,
-        "add": lambda: A + A, "add_identity": lambda: A.add_identity(1.0),
-        "spgemm": lambda: A @ A, "diag": lambda: A.diag(),
-        "triu": lambda: A.triu(), "tril": lambda: A.tril(),
-        "dropzeros": lambda: A.dropzeros(),
-        "speye": lambda: ht.speye(n, be), "spdiagm": lambda: ht.spdiagm(x),
-        "spdiagm_offsets": lambda: ht.spdiagm((1, x)),
-        "spzeros": lambda: ht.spzeros(n, n, be),
-        "sprand_dist": lambda: ht.sprand_dist(n, n, 0.2, be),
-        "from_local_csr": lambda: ht.DistSparseMatrix.from_local_csr(
-            [(np.zeros(1, np.int64), np.zeros(0, np.int64), np.zeros(0))]
-            * be.nshards, n, be),
-        "sparse_repartition": lambda: A.repartition(
-            empty_shard_partition(n, be.nshards)),
         "dense": lambda: ht.DistDenseMatrix.from_global(np.ones((n, 2)), be),
         "vector_getindex": lambda: x[1:3], "vector_setindex": setv,
         "sparse_getindex": lambda: A[0:2, 0:2], "sparse_setindex": setA,
@@ -416,29 +551,134 @@ def host_ms(fn, reps: int = 200) -> float:
 def card_matrices(k: int, n: int, ridge: tuple, seed: int) -> dict:
     """chip_smoke.py's matrices (tools/matrices.py, its seeds): laplace2d(k)
     (K1), the random n x 8 (K2 and its gather mode), the power law (K2's
-    tail) and the ridge normal matrix N (K3)."""
+    tail), the ridge design A with its right-hand side and scipy's normal
+    matrix N = AᵀA + λI (K3), and phase 11's complex ones: the Helmholtz
+    operator on laplace2d(k) (K1 in c128) and the random matrix and N
+    with seeded imaginary parts (K2 and K3 in c128)."""
     m, nr, lam = ridge
-    Ab, _ = banded_design(m, nr, seed + 8)
+    Ab, bh = banded_design(m, nr, seed + 8)
     N = (Ab.T @ Ab + lam * sp.eye(nr)).tocsr()
     N.sort_indices()
-    return {"lap": laplace2d(k), "random8": random_8(n, seed + 1),
-            "power_law": power_law(n, seed + 2), "N": N}
+    R8 = random_8(n, seed + 1)
+    return {"lap": laplace2d(k), "random8": R8,
+            "power_law": power_law(n, seed + 2), "N": N,
+            "design": Ab, "design_b": bh, "helm": helmholtz(k),
+            "random8_c128": complex_values(R8, seed + 9),
+            "N_c128": complex_values(N, seed + 10)}
+
+
+# the products of ``card``: name -> (matrix of card_matrices, the
+# backend's dtype when it is not the caller's); the complex matrices are
+# promoted to c128 on the caller's (f64) backend and share its plans
+CARD_PRODUCTS = {"lap": ("lap", None), "lap_f32": ("lap", np.float32),
+                 "random8": ("random8", None),
+                 "power_law": ("power_law", None), "N": ("N", None),
+                 "helm": ("helm", None),
+                 "random8_c128": ("random8_c128", None),
+                 "N_c128": ("N_c128", None)}
+
+
+def _first_s(be, fn):
+    """(fn(), the seconds it took, the device's queue drained)."""
+    sync = torch.cuda.synchronize if be.device.type == "cuda" else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def ridge(be, mats: dict, As: dict, lam: float,
+          steps: int) -> tuple[dict, dict]:
+    """chip_smoke.py phase 6's ridge path on this rank's shard: At =
+    A.T.materialize() (the transpose exchange), C = At @ A (the pair
+    SpGEMM), N = C.add_identity(λ), rhs = At @ b (K2), ``steps`` CG steps
+    on N (K3), ldlt(N).solve(rhs) (the host engine, rank 0 factors), A @ x
+    (K3); the refit A.with_values(1.5 A.nzval), whose products must reuse
+    every plan; laplace2d(k) + the random matrix (an addition across
+    patterns), diag and triu of laplace2d(k); and the c128 transpose of
+    A's values times (0.6 - 0.8i) and the c128 Helmholtz operator plus the
+    random c128 matrix (``As``: ``card``'s matrices, which hold the last
+    four). Returns (results, the matrices the caller times),
+    each result under ``ridge.``; ``check.ridge_*`` are this rank's
+    checks against scipy (relative errors, the pattern)."""
+    import hpclinalg_torch as ht
+    from ..ops import spgemm as spgemm_mod
+    from .ell_ab import cg as cg_steps
+
+    Ad = ht.DistSparseMatrix.from_scipy(mats["design"], be)
+    b = ht.DistVector.from_global(mats["design_b"], be)
+    out = {}
+    At, out["time.transpose_first_s"] = _first_s(be, lambda: Ad.T.materialize())
+    C, out["time.spgemm_first_s"] = _first_s(be, lambda: At @ Ad)
+    N, out["time.add_identity_first_s"] = _first_s(
+        be, lambda: C.add_identity(lam))
+    rhs = At @ b
+    xk, _ = cg_steps(N, rhs, steps)
+    x = ht.ldlt(N).solve(rhs)
+    y = Ad @ x
+    out.update({"ridge.At.local": At.nzval, "ridge.C.local": C.nzval,
+                "ridge.N.local": N.nzval, "ridge.rhs.local": rhs.data,
+                "ridge.cg.local": xk.data, "ridge.x.local": x.data,
+                "ridge.Ax.local": y.data,
+                "ridge.spgemm.engine": spgemm_mod.engine(At, Ad),
+                "ridge.spgemm.nchunks":
+                    spgemm_mod.get_spgemm_plan(At, Ad).nchunks})
+    Nh, Nsc = N.to_scipy(), mats["N"]
+    xh, rh = x.to_numpy(), rhs.to_numpy()
+    out.update({
+        "check.ridge_N_pattern": np.array_equal(Nh.indptr, Nsc.indptr)
+        and np.array_equal(Nh.indices, Nsc.indices),
+        "check.ridge_N_rel_err": np.abs(Nh.data - Nsc.data).max()
+        / np.abs(Nsc.data).max(),
+        "check.ridge_solve_res": np.linalg.norm(Nsc @ xh - rh)
+        / np.linalg.norm(rh),
+        "check.ridge_cg_rel_err": np.linalg.norm(xk.to_numpy() - xh)
+        / np.linalg.norm(xh),
+        "check.ridge_Ax_rel_err": np.abs(y.to_numpy() - mats["design"] @ xh)
+        .max() / np.abs(mats["design"] @ xh).max()})
+    sizes = ht.cache_sizes()
+    A2 = Ad.with_values(Ad.nzval * 1.5)
+    C2 = A2.T.materialize() @ A2
+    out.update({"check.ridge_refit_reused": ht.cache_sizes() == sizes
+                and C2.structure is C.structure,
+                "ridge.C2.local": C2.nzval})
+
+    lap, r8 = As["lap"], As["random8"]
+    S, out["time.add_first_s"] = _first_s(be, lambda: lap + r8)
+    out.update({"ridge.add.local": S.nzval, "ridge.add.hash": S.hash,
+                "ridge.diag.local": lap.diag().data,
+                "ridge.triu.local": lap.triu().nzval})
+    Ac = Ad.map_nonzeros(lambda v: v * (0.6 - 0.8j))
+    out.update({"ridge.At_c128.local": Ac.T.materialize().nzval,
+                "ridge.add_c128.local": (As["helm"] + As["random8_c128"])
+                .nzval})
+    return out, {"A": Ad, "At": At, "C": C}
 
 
 def card(be, k: int = 1000, n: int = 1_000_000,
-         ridge: tuple = (1_000_000, 16_384, 1e-2), k_solve: int = 512,
-         steps: int = 20, seed: int = 0, mats: dict | None = None) -> dict:
+         ridge_shape: tuple = (1_000_000, 16_384, 1e-2), k_solve: int = 256,
+         steps: int = 20, ridge_steps: int = 50, seed: int = 0,
+         mats: dict | None = None) -> dict:
     """The main path on this rank's shard at chip_smoke.py's sizes: ``A @
     x`` on laplace2d(k) in f64 and f32 (K1, the halo exchange), ``steps``
     CG steps and a dot in each, ``A @ x`` on the random and power-law
-    matrices (K2, its gather mode and tail) and on N (K3), then
+    matrices (K2, its gather mode and tail), on N (K3) and, in c128, on
+    the Helmholtz operator (K1), the random matrix (K2) and N (K3, or K2
+    where the gathered x is over K3's cap), then the ridge assembly
+    (``ridge``, with ``ridge_steps`` CG steps on N), then
     ``ldlt(laplace2d(k_solve)).solve(b)`` on the host engine and
-    ``ht.solve`` twice on that pattern. The kernels' launch counters are
-    set to 0 just before and read just after (``launches.*``). On a CUDA
-    device it then times the CG step (``tools/ell_ab.cg_step_ms``), the
-    random matrix's exchange alone, and on a group an ``all_reduce`` of a
-    scalar and an ``all_to_all_single`` of 2^16 doubles to each rank.
-    ``mats``: ``card_matrices``' result, if the caller has it."""
+    ``ht.solve`` twice on that pattern. Every plan cache is cleared
+    first, so the first calls build their plans in every drive. The
+    kernels' launch counters are set to 0 just before and read just after
+    (``launches.*``). On a CUDA device it then times the CG step
+    (``tools/ell_ab.cg_step_ms``), the random matrix's exchange alone,
+    the ridge's cached transpose, SpGEMM and add_identity, and on a group
+    an ``all_reduce`` of a scalar (and where its host time goes,
+    ``host_profile``) and an ``all_to_all_single`` of 2^16 doubles to
+    each rank. ``mats``:
+    ``card_matrices``' result, if the caller has it."""
     import hpclinalg_torch as ht
     from ..ops import spmv as spmv_mod
     from ..parallel import comm
@@ -446,17 +686,17 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     from .ell_ab import cg_step_ms
 
     t0 = time.perf_counter()
-    mats = mats or card_matrices(k, n, ridge, seed)
+    ht.clear_plan_cache()
+    mats = mats or card_matrices(k, n, ridge_shape, seed)
     rng = np.random.default_rng(seed)
     xh, bh = rng.standard_normal(n), rng.standard_normal(n)
-    f32 = replace(be, dtype=np.float32)
-    As = {"lap": ht.DistSparseMatrix.from_scipy(mats["lap"], be),
-          "lap_f32": ht.DistSparseMatrix.from_scipy(mats["lap"], f32),
-          **{name: ht.DistSparseMatrix.from_scipy(mats[name], be)
-             for name in ("random8", "power_law", "N")}}
-    xs = {name: ht.DistVector.from_global(
-              xh[: A.ncols], f32 if name == "lap_f32" else be)
-          for name, A in As.items()}
+    xc = xh + 1j * rng.standard_normal(n)
+    As, xs = {}, {}
+    for name, (mat, dt) in CARD_PRODUCTS.items():
+        bd = be if dt is None else be.with_dtype(dt)
+        As[name] = ht.DistSparseMatrix.from_scipy(mats[mat], bd)
+        xs[name] = ht.DistVector.from_global(
+            (xc if As[name].dtype.is_complex else xh)[: As[name].ncols], bd)
     plans = {name: spmv_mod.get_spmv_plan(A, xs[name])
              for name, A in As.items()}
     L = laplace2d(k_solve)
@@ -481,11 +721,15 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     for name in ("lap", "lap_f32"):
         A, x = As[name], xs[name]
         b = ht.DistVector.from_global(bh, x.backend)
-        xc, rc = cg_steps(A, b, steps)
+        xcg, rc = cg_steps(A, b, steps)
         out.update({f"{name}.y.full": (A @ x).to_numpy(),
-                    f"{name}.dot": x.dot(b), f"{name}.cg.local": xc.data,
+                    f"{name}.dot": x.dot(b), f"{name}.cg.local": xcg.data,
                     f"{name}.cg.rnorm": rc.norm()})
     out["secs.products_cg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, rm = ridge(be, mats, As, ridge_shape[2], ridge_steps)
+    out.update(res)
+    out["secs.ridge"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     xsol = ht.ldlt(Ls).solve(bs)
     out.update({"solve.local": xsol.data, "solve.full": xsol.to_numpy()})
@@ -502,11 +746,19 @@ def card(be, k: int = 1000, n: int = 1_000_000,
         step = cg_step_ms(As["lap"], b)
         ex = plans["random8"].exchange
         x8 = xs["random8"].data
+        A, At, C = rm["A"], rm["At"], rm["C"]
+        lam = ridge_shape[2]
         out.update({"time.cg_step_ms": step["step_ms"],
                     "time.cg_host_enqueue_ms": step["host_enqueue_ms"],
                     "time.exchange_random8_ms": events_ms(
                         lambda: ex.apply(x8)),
-                    "time.dot_host_ms": host_ms(lambda: b.dot(b))})
+                    "time.dot_host_ms": host_ms(lambda: b.dot(b)),
+                    "time.transpose_values_ms": events_ms(
+                        lambda: A.with_values(A.nzval)
+                        .transpose_materialized()),
+                    "time.spgemm_values_ms": events_ms(lambda: At @ A),
+                    "time.add_identity_ms": events_ms(
+                        lambda: C.add_identity(lam))})
         if be.is_dist:
             one = torch.ones((), dtype=torch.float64, device=be.device)
             buf = torch.ones(be.world << 16, dtype=torch.float64,
@@ -518,8 +770,56 @@ def card(be, k: int = 1000, n: int = 1_000_000,
                 "time.all_reduce_host_ms": host_ms(
                     lambda: comm.all_reduce(be, one.clone())),
                 "time.all_to_all_64k_ms": events_ms(
-                    lambda: comm.all_to_all_v(be, buf, splits, splits))})
+                    lambda: comm.all_to_all_v(be, buf, splits, splits)),
+                "profile.all_reduce": host_profile(
+                    lambda: comm.all_reduce(be, one.clone()))})
     return {f"card.{k}": _np(v) for k, v in out.items()}
+
+
+def host_profile(fn, calls: int = 200, top: int = 12) -> str:
+    """Where the host time of ``fn`` goes, over ``calls`` calls queued
+    without a wait, as JSON: the ``top`` Python functions by their own
+    time under cProfile (which sees no time inside a pybind11 method: it
+    counts as its caller's own) and the ``top`` operators by their own
+    CPU time under ``torch.profiler`` (CPU activity only), each with its
+    µs and its calls per call of ``fn``; and the µs a call under each
+    profiler (its own cost included)."""
+    import cProfile
+    import json
+    import os
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    per_call_us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, f"{os.path.basename(f)}:{line}({name})")
+                   for (f, line, name), (_cc, nc, tt, _ct, _callers)
+                   in stats.items()), reverse=True)[:top]
+    act = torch.profiler.ProfilerActivity.CPU
+    with torch.profiler.profile(activities=[act]) as tprof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch_us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    ops = sorted(tprof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:top]
+    return json.dumps({"profiled_us_per_call": per_call_us,
+                       "self_us_per_call": [
+                           [where, tt * 1e6 / calls, nc / calls]
+                           for tt, nc, where in rows],
+                       "torch_profiled_us_per_call": torch_us,
+                       "op_self_us_per_call": [
+                           [e.key, e.self_cpu_time_total / calls,
+                            e.count / calls] for e in ops]})
 
 
 def checks(be) -> dict:
@@ -531,7 +831,7 @@ def checks(be) -> dict:
 
 
 BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
-          "spmv": spmv, "cg": cg, "solves": solves, "utilities": utilities,
+          "spmv": spmv, "algebra": algebra, "cg": cg, "solves": solves, "utilities": utilities,
           "guards": guards, "card": card}
 
 

@@ -5,12 +5,15 @@ JAX package's ``__graft_entry__.dryrun_multichip`` over an n-device mesh.
     python -m hpclinalg_torch.tools.dryrun [n]      # n NCCL ranks, a card each
     python -m hpclinalg_torch.tools.dryrun [n] --device cpu   # n gloo ranks
 
-It runs what this slice of the port runs on a group: 20 CG steps on
-laplace2d(16) in f32 (the halo exchange, the SpMV, the all-reduced dots),
-with the residual below a tenth of its start, then a host ``ldlt`` solve
-(rank 0 factors) with its residual below 1e-5 in f32 and 1e-10 in f64.
-The JAX function's device LDLᵀ/LU and its complex part are not run: the
-device multifrontal solver and complex values on a group are later slices
+It runs what the port runs on a group: 20 CG steps on laplace2d(16) in
+f32 (the halo exchange, the SpMV, the all-reduced dots), with the residual
+below a tenth of its start, then a host ``ldlt`` solve (rank 0 factors)
+with its residual below 1e-5 in f32 and 1e-10 in f64, then the JAX
+function's complex part (``__graft_entry__._dryrun_complex``) in native
+complex64: the SpMV of laplace2d(12) - 0.4 I + 0.05i I within 1e-3 of
+scipy's (relative), and ``ht.lu(A).solve(b)`` through the host LU (rank 0
+factors) with its residual below 1e-5. The JAX function's device LDLᵀ/LU
+is not run: the device multifrontal solver over a group is a later slice
 (ROADMAP.md queue 1).
 """
 
@@ -23,6 +26,8 @@ import numpy as np
 from .matrices import laplace2d
 
 SOLVE_RES = {np.float32: 1e-5, np.float64: 1e-10}
+COMPLEX_SPMV_RTOL = 1e-3
+COMPLEX_LU_RES = 1e-5
 
 
 def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
@@ -66,7 +71,38 @@ def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
             raise AssertionError(f"host ldlt solve residual {res} in "
                                  f"{np.dtype(dt).name} is not below {tol}")
         out[f"solve_residual_{np.dtype(dt).name}"] = res
+    out.update(_dryrun_complex(be))
     return out
+
+
+def _dryrun_complex(be) -> dict:
+    """The complex part (``__graft_entry__._dryrun_complex``) in native
+    complex64 on the group: the SpMV and a host LU solve."""
+    import scipy.sparse as sp
+
+    import hpclinalg_torch as ht
+
+    k = 12
+    n = k * k
+    Ac = (laplace2d(k) - 0.4 * sp.eye(n) + 0.05j * sp.eye(n)) \
+        .astype(np.complex64).tocsr()
+    rng = np.random.default_rng(3)
+    bc = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        .astype(np.complex64)
+    A = ht.DistSparseMatrix.from_scipy(Ac, be)
+    b = ht.DistVector.from_global(bc, be)
+    want = Ac @ bc
+    err = float(np.linalg.norm((A @ b).to_numpy() - want)
+                / np.linalg.norm(want))
+    if not err < COMPLEX_SPMV_RTOL:
+        raise AssertionError(f"complex SpMV relative error {err} is not "
+                             f"below {COMPLEX_SPMV_RTOL}")
+    x = ht.lu(A).solve(b).to_numpy()
+    res = float(np.linalg.norm(Ac @ x - bc) / np.linalg.norm(bc))
+    if not res < COMPLEX_LU_RES:
+        raise AssertionError(f"complex LU solve residual {res} is not below "
+                             f"{COMPLEX_LU_RES}")
+    return {"complex_spmv_rel_err": err, "complex_lu_residual": res}
 
 
 def _on_rank(device: str, n_devices: int) -> dict:

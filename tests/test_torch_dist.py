@@ -31,10 +31,7 @@ from hpclinalg_torch.tools.matrices import laplace2d
 torch.set_num_threads(1)
 
 DEADLINE_S = 120
-GUARDED = ("transpose", "lazy_matrix", "lazy_vector", "adjoint", "add",
-           "add_identity", "spgemm", "diag", "triu", "tril", "dropzeros",
-           "speye", "spdiagm", "spdiagm_offsets", "spzeros", "sprand_dist",
-           "from_local_csr", "sparse_repartition", "dense", "vector_getindex",
+GUARDED = ("dense", "vector_getindex",
            "vector_setindex", "sparse_getindex", "sparse_setindex", "cat",
            "blockdiag", "vcat_vectors", "hcat_vectors", "norm", "opnorm",
            "sum", "row_sum", "tr", "maximum", "minimum", "mean", "map_rows",
@@ -230,7 +227,7 @@ def test_cg_iterates_against_jax(world, dtype):
           float(jnp.linalg.norm(r)), rtol)
 
 
-SOLVES = ("ldlt", "ldlt_host", "lu", "lu_t", "bs1", "bs2")
+SOLVES = ("ldlt", "ldlt_host", "lu", "lu_t", "lu_st", "bs1", "bs2")
 
 
 @pytest.mark.parametrize("name", SOLVES)
@@ -246,6 +243,9 @@ def test_host_solves_against_jax(world, name):
     b = hl.DistVector.from_global(bh, be)
     if name in ("ldlt", "ldlt_host"):
         want = hl.ldlt(A).solve(b).to_numpy()
+    elif name == "lu_st":
+        want = hl.lu(hl.DistSparseMatrix.from_scipy(Lu, be)) \
+            .solve_transpose(b).to_numpy()
     elif name in ("lu", "lu_t"):
         want = hl.lu(hl.DistSparseMatrix.from_scipy(Lu, be)).solve(
             b, transpose=name == "lu_t").to_numpy()
@@ -315,6 +315,18 @@ def test_from_reference_keeps_the_local_shard(world):
                                   np.asarray(Aj.nzval))
 
 
+def test_with_dtype_keeps_the_group(world):
+    assert all(bool(r["util.with_dtype.keeps_group"]) for r in world.ranks)
+    got = world.rows("util.with_dtype.f32")
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, world.stacked["util.with_dtype.f32"])
+    n, S = 37, world.S
+    xh = np.random.default_rng(6).standard_normal(n)
+    jbe = world.jbe.with_dtype(np.float32)
+    np.testing.assert_array_equal(got, np.asarray(hl.DistVector.from_global(
+        xh, jbe, partition=dc.empty_shard_partition(n, S)).data))
+
+
 def test_every_guarded_operation_is_checked(world):
     for out in world.ranks:
         assert {k[len("guard."):] for k in out if k.startswith("guard.")} \
@@ -333,6 +345,8 @@ def test_dryrun_multichip(n):
     assert float(out["cg_residual"]) < 0.1 * float(out["cg_residual0"])
     assert float(out["solve_residual_float32"]) < 1e-5
     assert float(out["solve_residual_float64"]) < 1e-10
+    assert float(out["complex_spmv_rel_err"]) < 1e-3
+    assert float(out["complex_lu_residual"]) < 1e-5
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
