@@ -150,7 +150,26 @@ hpclinalg_torch/csrc, then:
      transpose, SpGEMM and additions, an all_reduce and an
      all_to_all_single are timed per rank beside the stacked drive's; at
      NCCL world 1 the all_reduce's host time is profiled (cProfile and
-     torch.profiler's CPU activity).
+     torch.profiler's CPU activity);
+ 13. drives the device multifrontal solver and the dense containers with
+     one shard a process (tools/dist_checks.solvers, arrangements as in
+     phase 12), with the host fallback's warning an error: ldlt(A,
+     method="device", spd=True) of laplace2d(512) (n = 262,144; its cross
+     buffer summed by one all_reduce, the top tree replicated in every
+     rank) and its solve, the indefinite LDL and the LU with its
+     transposed solve on laplace2d(256), a c128 LDL of Helmholtz(256);
+     then the multi-response ridge on phase 12's design and N: Y a
+     10^6 x 64 DistDenseMatrix, R = At @ Y (SpMM on the group), X =
+     ldlt(N, method="device", spd=True).solve_matrix(R) with |N X - R| /
+     |R| <= 1e-10, G = X.T @ X (the dense transpose's exchange) and the
+     single response solve(At @ b). Each rank is held against the same
+     drive run stacked at that S (solutions rtol 1e-10, R and G 1e-12;
+     n_perturbed, growth and the plan's digest equal), must have launched
+     K1, K2, its gather mode and K3, and at gloo world 4 its Cholesky
+     subtrees cover all four ranks; one JSON line an arrangement prints
+     each rank's first call, engine factor (events and host enqueue
+     time), solve, cross all_reduce (bytes, events, host time), At @ Y
+     and multi-RHS solve beside the stacked drive's.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -167,9 +186,11 @@ import scipy.sparse as sp
 import torch
 
 from hpclinalg_torch.tools.ell_ab import cg, device_events, kernel_times
-from hpclinalg_torch.tools.matrices import (banded_design, complex_values,
-                                            helmholtz, laplace2d, power_law,
-                                            random_8, random_cols, wide_span)
+from hpclinalg_torch.tools.matrices import (banded_design,
+                                            between_eigenvalues,
+                                            complex_values, helmholtz,
+                                            laplace2d, power_law, random_8,
+                                            random_cols, wide_span)
 from hpclinalg_torch.tools.timing import Timer, bound_ms
 
 SEED = 0
@@ -737,16 +758,6 @@ def timed_ms(fn, n):
 
 def rel_res(M, x, b):
     return float(np.linalg.norm(M @ x - b) / np.linalg.norm(b))
-
-
-def between_eigenvalues(k, target):
-    """The midpoint of the two eigenvalues of laplace2d(k) around target:
-    laplace2d(k) - sigma I is then indefinite and as far from singular as
-    a shift near target can make it."""
-    t = 2 - 2 * np.cos(np.arange(1, k + 1) * np.pi / (k + 1))
-    ev = np.sort((t[:, None] + t[None, :]).ravel())
-    i = int(np.searchsorted(ev, target))
-    return 0.5 * (ev[i - 1] + ev[i])
 
 
 def phase9_device_solver(ht, dev, card, times):
@@ -1677,7 +1688,7 @@ def dist_held(ranks, ref, what):
     return errs
 
 
-def phase12_dist(ht, dev, card, times):
+def phase12_dist(ht, dev, card, times, mats):
     """The main path with one shard a process (``ht.backend_dist``), each
     rank on the card, through ``tools/dist_checks.card`` at this script's
     sizes: (a) NCCL at world 1; (b) gloo at world DIST_WORLD, the ranks
@@ -1688,8 +1699,9 @@ def phase12_dist(ht, dev, card, times):
     arrangement with the stacked run's times beside its ranks' (the CG
     step, the exchange, the ridge's first and cached transpose, SpGEMM
     and additions) and, at NCCL world 1, prints where the host time of an
-    ``all_reduce`` goes (cProfile). Returns each kernel's per-rank
-    launches by arrangement."""
+    ``all_reduce`` goes (cProfile). ``mats``: ``dist_checks.card_matrices``
+    at this script's sizes. Returns each kernel's per-rank launches by
+    arrangement."""
     from hpclinalg_torch.parallel.launch import run_ranks
     from hpclinalg_torch.tools import dist_checks as dc
 
@@ -1697,7 +1709,6 @@ def phase12_dist(ht, dev, card, times):
           "ridge_shape": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA),
           "k_solve": DEV_K_SMALL, "ridge_steps": RIDGE_CG_STEPS,
           "seed": SEED}
-    mats = dc.card_matrices(K, N, kw["ridge_shape"], SEED)
     count = torch.cuda.device_count()
     arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
     if count >= 2:
@@ -1756,6 +1767,151 @@ def phase12_dist(ht, dev, card, times):
         times[f"phase12_{key}"] = record
         print(json.dumps(record), flush=True)
     return dist_launches
+
+
+# ---- phase 13: the device solver and the dense containers, per process -----
+
+DIST13_DEADLINE_S = 300  # each arrangement's spawn, set-up and drive
+RIDGE_K = SPMM_K         # responses of the multi-response ridge (Y 10^6 x 64)
+# the residual each of ``dist_checks.solvers``' solves may have in every
+# rank (phase 9's and phase 11's bounds)
+DIST13_RES = {"chol_res": 1e-10, "ldl_res": 1e-8, "lu_res": 1e-9,
+              "lu_t_res": 1e-9, "c128_res": CPLX_RES[torch.complex128],
+              "ridge_multi_res": RIDGE_RES_TOL, "ridge_res": RIDGE_RES_TOL}
+# results of ``solvers`` that are sums (SpMM, the dense transpose's
+# product), held to the stacked run to 1e-12; the rest are solutions,
+# held to 1e-10 (the cross and top sums run in another order)
+DIST13_SUMMED = ("ridge.R", "ridge.G")
+DIST13_KINDS = ("chol", "ldl", "lu", "c128", "ridge_chol")
+
+
+def dist13_held(ranks, ref, what):
+    """Each rank of ``dist_checks.solvers`` against the stacked run at the
+    same S: every rank's rows against that row of the stack (solutions
+    rtol 1e-10, R and G 1e-12 of their largest entry), the same
+    n_perturbed, growth and plan digest in every rank and the stacked
+    run, the residuals within DIST13_RES, both factorizations on the
+    device engine, and every one of K1, K2, its gather mode and K3
+    launched. Returns the largest error of each result."""
+    from hpclinalg_torch.tools.dist_checks import LAUNCH_COUNTERS
+
+    world = len(ranks)
+    errs = {}
+    for r, out in enumerate(ranks):
+        check(int(out["meta.nlocal"]) == 1 and not bool(out["meta.jax"])
+              and bool(out["sol.chol.device"])
+              and bool(out["sol.ridge.device"]),
+              f"{what} rank {r}: one shard, no JAX, the device engine")
+        for key, tol in DIST13_RES.items():
+            got = float(out[f"sol.check.{key}"])
+            check(got <= tol, f"{what} rank {r}: {key} {got:.3e} "
+                  f"(<= {tol:g})")
+        for kind in DIST13_KINDS:
+            for stat in ("n_perturbed", "growth", "digest"):
+                key = f"sol.{kind}.{stat}"
+                check(str(out[key]) == str(ref[key]),
+                      f"{what} rank {r}: {kind} {stat} {out[key]} equals "
+                      f"the stacked run's")
+        for key, want in ref.items():
+            if not key.endswith((".local", ".full")):
+                continue
+            got = out[key]
+            if key.endswith(".local"):
+                want = want[r: r + 1]
+            name = key[len("sol."):].rsplit(".", 1)[0]
+            rtol = 1e-12 if name in DIST13_SUMMED else 1e-10
+            ok, err = close(torch.from_numpy(got), torch.from_numpy(want),
+                            rtol)
+            check(ok, f"{what} rank {r}: {key[len('sol.'):]} equals the "
+                  f"stacked run (rtol {rtol:g}, max_abs_err={err:.3e})")
+            errs[name] = max(errs.get(name, 0.0), err)
+        launches = {k: int(out[f"sol.launches.{k}"]) for k in LAUNCH_COUNTERS}
+        check(all(v >= 1 for v in launches.values()),
+              f"{what} rank {r} launched K1, K2, K2's gather mode and K3: "
+              f"{launches}")
+    if world == DIST_WORLD:
+        owners = ranks[0]["sol.chol.owners"].tolist()
+        cross = int(ranks[0]["sol.chol.cross"])
+        check(owners == list(range(world)) and cross > 1,
+              f"{what}: laplace2d({DEV_K})'s subtrees cover ranks {owners} "
+              f"and the cross buffer holds {cross} values")
+    return errs
+
+
+def phase13_solvers(ht, dev, card, times, mats):
+    """The device multifrontal solver and the dense containers with one
+    shard a process, through ``tools/dist_checks.solvers`` at full width:
+    the device Cholesky of laplace2d(DEV_K) (n = 262,144), the indefinite
+    LDL, the LU with its transposed solve and a c128 LDL of
+    Helmholtz(DEV_K_SMALL), and the multi-response ridge on phase 12's
+    design and N (``mats``): Y 10^6 x RIDGE_K, R = At @ Y, X =
+    ldlt(N, method="device", spd=True).solve_matrix(R), G = X.T @ X.
+    Arrangements as phase 12's; each rank is held against the same body
+    run stacked at that S in this process (``dist13_held``), and one JSON
+    line an arrangement prints each rank's first call (plan), factor,
+    solve, cross all_reduce (events and host time), At @ Y and multi-RHS
+    solve beside the stacked run's, with the launches and the cross
+    buffer's bytes. Returns each kernel's per-rank launches by
+    arrangement."""
+    from hpclinalg_torch.parallel.launch import run_ranks
+    from hpclinalg_torch.tools import dist_checks as dc
+
+    kw = {"k": DEV_K, "k_small": DEV_K_SMALL,
+          "ridge_shape": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA), "ycols": RIDGE_K,
+          "seed": SEED}
+    ridge = {k: mats[k] for k in ("design", "design_b", "N")}
+    count = torch.cuda.device_count()
+    arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
+    if count >= 2:
+        arrangements.append(("nccl", count))
+    refs = {}
+    for S in sorted({w for _, w in arrangements}):
+        refs[S], t = timed_s(lambda: dc.solvers(
+            ht.backend_auto(S, device=dev), mats=ridge, **kw))
+        print(f"  stacked S={S} reference drive: {t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    launches = {k: {} for k in dc.LAUNCH_COUNTERS}
+    for transport, world in arrangements:
+        what = f"{transport} world {world}"
+        ranks, secs = timed_s(lambda: run_ranks(
+            "hpclinalg_torch.tools.dist_checks:on_rank", world,
+            backend=transport, device="cuda", deadline_s=DIST13_DEADLINE_S,
+            args=("solvers", kw)))
+        ref = refs[world]
+        errs = dist13_held(ranks, ref, what)
+        key = f"{transport}_world{world}"
+        for k in dc.LAUNCH_COUNTERS:
+            launches[k][key] = [int(r[f"sol.launches.{k}"]) for r in ranks]
+        per_rank = {k[len("sol.time."):]: [float(r[k]) for r in ranks]
+                    for k in ranks[0] if k.startswith("sol.time.")}
+        stacked = {f"stacked_S{world}_{k[len('sol.time.'):]}": float(v)
+                   for k, v in ref.items() if k.startswith("sol.time.")}
+        record = {"phase13": key, "card": card, "seconds": secs,
+                  **per_rank, **stacked,
+                  "cross_bytes": int(ranks[0]["sol.chol.cross_bytes"]),
+                  "stacked_cross_bytes": int(ref["sol.chol.cross_bytes"]),
+                  "chol_owners": ranks[0]["sol.chol.owners"].tolist(),
+                  "n_perturbed": {
+                      kind: int(ranks[0][f"sol.{kind}.n_perturbed"])
+                      for kind in DIST13_KINDS},
+                  "growth": {kind: float(ranks[0][f"sol.{kind}.growth"])
+                             for kind in DIST13_KINDS},
+                  "residuals": {k: [float(r[f"sol.check.{k}"]) for r in ranks]
+                                for k in DIST13_RES},
+                  "launches": {k: launches[k][key]
+                               for k in dc.LAUNCH_COUNTERS},
+                  "stacked_launches": {k: int(ref[f"sol.launches.{k}"])
+                                       for k in dc.LAUNCH_COUNTERS},
+                  "rank_secs": {k[len("sol.secs."):]: [
+                      float(r[k]) for r in ranks]
+                      for k in ranks[0] if k.startswith("sol.secs.")},
+                  "stacked_secs": {k[len("sol.secs."):]: float(v)
+                                   for k, v in ref.items()
+                                   if k.startswith("sol.secs.")},
+                  "max_abs_err": errs}
+        times[f"phase13_{key}"] = record
+        print(json.dumps(record), flush=True)
+    return launches
 
 
 def main():
@@ -2175,9 +2331,24 @@ def main():
     print(f"phase 12: one shard a process (ht.backend_dist): NCCL world 1, "
           f"gloo world {DIST_WORLD} on one card, NCCL over every card; K1, "
           f"K2, its gather mode and K3 in every rank on {card}", flush=True)
-    dist_launches, t12 = timed_s(lambda: phase12_dist(ht, dev, card, times))
+    from hpclinalg_torch.tools.dist_checks import card_matrices
+
+    mats = card_matrices(K, N, (RIDGE_M, RIDGE_N, RIDGE_LAMBDA), SEED)
+    dist_launches, t12 = timed_s(lambda: phase12_dist(ht, dev, card, times,
+                                                      mats))
     print(f"phase 12 launches per rank: {dist_launches}; phase 12 took "
           f"{t12:.1f} s  [{card}]", flush=True)
+
+    # ---- phase 13: the device solver and the dense containers, per process --
+    print(f"phase 13: one shard a process, the device Cholesky of laplace2d("
+          f"{DEV_K}), LDL/LU/c128 LDL at {DEV_K_SMALL}^2, the multi-response "
+          f"ridge (Y {RIDGE_M} x {RIDGE_K}); NCCL world 1, gloo world "
+          f"{DIST_WORLD} on one card on {card}", flush=True)
+    sol_launches, t13 = timed_s(lambda: phase13_solvers(ht, dev, card, times,
+                                                        mats))
+    del mats
+    print(f"phase 13 launches per rank: {sol_launches}; phase 13 took "
+          f"{t13:.1f} s  [{card}]", flush=True)
 
     f64 = torch.float64
     v4 = dv[2000]["v4"]
@@ -2202,6 +2373,7 @@ def main():
          "device_solver_launches": launches9["dia"],
          "kkt_launches": launches10["dia"],
          "dist_launches": dist_launches["dia"],
+         "dist_solver_launches": sol_launches["dia"],
          "max_abs_err": errs["dia"],
          **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
@@ -2209,6 +2381,7 @@ def main():
          "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
          "launches": launches["ell"], "kkt_launches": launches10["ell"],
          "dist_launches": dist_launches["ell"],
+         "dist_solver_launches": sol_launches["ell"],
          "max_abs_err": errs["ell"],
          **timed(("random8", 1, f64))},
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
@@ -2218,6 +2391,7 @@ def main():
          "device_solver_launches": launches9["gather"],
          "kkt_launches": launches10["gather"],
          "dist_launches": dist_launches["gather"],
+         "dist_solver_launches": sol_launches["gather"],
          "max_abs_err": errs["gather"],
          **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
@@ -2226,6 +2400,7 @@ def main():
          "launches": launches["resident"],
          "kkt_launches": launches10["resident"],
          "dist_launches": dist_launches["resident"],
+         "dist_solver_launches": sol_launches["resident"],
          "max_abs_err": errs["resident"],
          **timed(("k3", "N", 1, f64))},
         {"name": "dia_flat_spmv (K4)", "route": "cuda",

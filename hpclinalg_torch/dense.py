@@ -3,11 +3,15 @@
 PyTorch counterpart of the JAX package's ``DistDenseMatrix`` (and of the
 reference's ``HPCMatrix``): each shard owns a contiguous block of rows with
 all ``ncols`` columns, stored stacked as one (S, Lrow, ncols) tensor whose
-padding rows stay zero. The products are plain ``torch.einsum``, as the
+padding rows stay zero; on a process group this process holds its own
+shard, (1, Lrow, ncols). The products are plain ``torch.einsum``, as the
 JAX package leaves them to XLA: the matvec gathers x whole
 (``parallel/mesh.allgather_full``), the transpose product sums the local
-partials over the stack without materialising Aᵀ, and the materialised
-transpose is one gather of the stack (``parallel/dense_transpose.py``).
+partials without materialising Aᵀ (over the stack, then, on a group, one
+``all_reduce``: the JAX package's psum), and the materialised transpose is
+one gather of the stack, or one exchange of the column windows on a group
+(``parallel/dense_transpose.py``). The reductions over rows reduce this
+process's shards and all-reduce the partial result.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from .backend import Backend, resolve_dtype, torch_dtype
 from .hashing import dense_structural_hash, partition_hash
+from .parallel import comm
 from .parallel.mesh import allgather_full, gather_to_host, scatter_from_full
 from .partition import (
     nshards_of,
@@ -44,17 +49,16 @@ class DistDenseMatrix:
     def __init__(self, data: torch.Tensor, row_partition: np.ndarray,
                  ncols: int, backend: Backend,
                  col_partition: np.ndarray | None = None):
-        backend.require_stacked("DistDenseMatrix (dense.py, ops/mixed.py)")
         self.backend = backend
         self.row_partition = validate_partition(row_partition)
         self.ncols = int(ncols)
-        self.data = data  # (S, Lrow, ncols), padding rows zero
+        self.data = data  # (nlocal, Lrow, ncols), padding rows zero
         self.col_partition = (validate_partition(col_partition, ncols)
                               if col_partition is not None
                               else uniform_partition(ncols, backend.nshards))
-        if data.dim() != 3 or data.shape[0] != backend.nshards \
+        if data.dim() != 3 or data.shape[0] != backend.nlocal \
                 or data.shape[2] != self.ncols:
-            raise ValueError(f"data must be (S={backend.nshards}, Lrow, "
+            raise ValueError(f"data must be (nlocal={backend.nlocal}, Lrow, "
                              f"{self.ncols}), got {tuple(data.shape)}")
 
     # -- metadata ---------------------------------------------------------
@@ -80,35 +84,40 @@ class DistDenseMatrix:
 
     # -- constructors -------------------------------------------------------
     @staticmethod
-    def _stacked(blocks, rp, n, dtype) -> np.ndarray:
-        out = np.zeros((nshards_of(rp), padded_size(rp), n), dtype=dtype)
-        for s, blk in enumerate(blocks):
-            out[s, : blk.shape[0]] = blk
+    def _stacked(blocks, rp, n, dtype, backend: Backend) -> np.ndarray:
+        """Host (nlocal, Lrow, n) staging of this process's shards' row
+        blocks (``blocks`` holds every shard's)."""
+        sh = backend.shards
+        out = np.zeros((len(sh), padded_size(rp), n), dtype=dtype)
+        for i, s in enumerate(sh):
+            out[i, : blocks[s].shape[0]] = blocks[s]
         return out
 
     @staticmethod
     def from_global(arr, backend: Backend, row_partition=None, dtype=None):
-        """Build from a full host array (ref global ctor, dense.jl:185)."""
+        """Build from a full host array (ref global ctor, dense.jl:185); on
+        a group every rank passes the same array and keeps its rows."""
         arr = np.asarray(arr)
         m, n = arr.shape
         rp = (validate_partition(row_partition, m) if row_partition is not None
               else uniform_partition(m, backend.nshards))
         out = DistDenseMatrix._stacked(
             [arr[rp[s]: rp[s + 1]] for s in range(nshards_of(rp))], rp, n,
-            resolve_dtype(backend, arr.dtype, dtype))
+            resolve_dtype(backend, arr.dtype, dtype), backend)
         return DistDenseMatrix(backend.tensor(out), rp, n, backend)
 
     @staticmethod
     def from_local(shards: list[np.ndarray], backend: Backend, dtype=None):
         """Build from per-shard row blocks (ref: HPCMatrix_local,
-        dense.jl:125)."""
+        dense.jl:125); on a group every rank passes every shard's block
+        and keeps its own."""
         shards = [np.asarray(s) for s in shards]
         sizes = [s.shape[0] for s in shards]
         rp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         n = shards[0].shape[1]
         out = DistDenseMatrix._stacked(
             shards, rp, n,
-            resolve_dtype(backend, np.result_type(*shards), dtype))
+            resolve_dtype(backend, np.result_type(*shards), dtype), backend)
         return DistDenseMatrix(backend.tensor(out), rp, n, backend)
 
     @staticmethod
@@ -116,7 +125,7 @@ class DistDenseMatrix:
               dtype=None):
         rp = (validate_partition(row_partition, m) if row_partition is not None
               else uniform_partition(m, backend.nshards))
-        data = torch.zeros((nshards_of(rp), padded_size(rp), n),
+        data = torch.zeros((backend.nlocal, padded_size(rp), n),
                            dtype=torch_dtype(dtype or backend.dtype),
                            device=backend.device)
         return DistDenseMatrix(data, rp, n, backend)
@@ -248,7 +257,8 @@ class DistDenseMatrix:
 
     def rmatvec(self, x):
         """Aᵀ @ x without materialising Aᵀ: the partial products of the
-        shards summed over the stack, laid out on ``col_partition`` (ref:
+        shards summed over the stack and, on a group, over the ranks (one
+        ``all_reduce``), laid out on ``col_partition`` (ref:
         DenseTransposeVectorPlan, dense.jl:1000-1261). Not conjugating."""
         from .vector import DistVector
 
@@ -259,7 +269,7 @@ class DistDenseMatrix:
             x = x.repartition(self.row_partition)
         a, xd = _promoted(self.data, x.data)
         # padding rows are zero on both sides and add nothing
-        full = torch.einsum("slc,sl->c", a, xd)
+        full = comm.all_reduce(self.backend, torch.einsum("slc,sl->c", a, xd))
         return DistVector(scatter_from_full(full, self.col_partition,
                                             self.backend),
                           self.col_partition, self.backend)
@@ -295,9 +305,10 @@ class DistDenseMatrix:
     # -- reductions (ref dense.jl:1367-1454) ------------------------------------
     def sum(self, axis=None):
         if axis is None:
-            return torch.sum(self.data)
+            return comm.all_reduce(self.backend, torch.sum(self.data))
         if axis == 0:
-            return torch.sum(self.data, dim=(0, 1))  # (ncols,)
+            return comm.all_reduce(self.backend,   # (ncols,)
+                                   torch.sum(self.data, dim=(0, 1)))
         if axis == 1:
             from .vector import DistVector
 
@@ -306,15 +317,20 @@ class DistDenseMatrix:
         raise ValueError("axis must be None, 0 or 1")
 
     def norm(self, p=2):
-        """Elementwise norm (Frobenius for p = 2)."""
-        return torch.linalg.vector_norm(self.data.reshape(-1), ord=p)
+        """Elementwise norm (Frobenius for p = 2); on a group the sum of
+        |x|^p over the ranks, then the root (the max for p = inf)."""
+        from .vector import dist_norm
+
+        return dist_norm(self.backend, self.data, p)
 
     def opnorm(self, p=np.inf):
         a = torch.abs(self.data)
         if p == np.inf:
-            return torch.max(torch.sum(a, dim=2))
+            return comm.all_reduce(self.backend,
+                                   torch.max(torch.sum(a, dim=2)), "max")
         if p == 1:
-            return torch.max(torch.sum(a, dim=(0, 1)))
+            return torch.max(comm.all_reduce(self.backend,
+                                             torch.sum(a, dim=(0, 1))))
         raise ValueError("opnorm supports p=1 and p=inf")
 
     def repartition(self, new_partition) -> "DistDenseMatrix":

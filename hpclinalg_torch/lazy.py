@@ -7,8 +7,8 @@ materialise the transpose, except a dense ``Dᵀ @ x``, which sums the
 shards' partial products without materialising (``rmatvec``); right
 division ``vᵀ / A`` solves the transposed system. On a process group
 each of these runs as its stacked form does (the transpose's exchange,
-the host solve on rank 0, ``vᵀ w`` all-reduced), except the dense
-``Dᵀ @ x``: dense containers do not run on a group yet.
+the host solve on rank 0, ``vᵀ w`` and the dense ``Dᵀ @ x``'s partial
+products all-reduced).
 """
 
 from __future__ import annotations
@@ -76,8 +76,6 @@ class LazyTranspose:
             return NotImplemented
         if isinstance(o, DistVector):
             if isinstance(p, DistDenseMatrix):
-                p.backend.require_stacked("the dense Dᵀ @ x (lazy.py, "
-                                          "DistDenseMatrix.rmatvec)")
                 return p.rmatvec(o)  # no materialisation (dense.jl:1000-1261)
             return self.materialize() @ o
         if isinstance(o, LazyTranspose):

@@ -136,6 +136,7 @@ def cat_dense(*blocks, dims=1):
 
     grid, row_off, col_off = _grid_offsets(blocks, dims)
     backend = grid[0][0].backend
+    backend.require_stacked("cat of dense blocks (ops/blocks.py)")
     S = backend.nshards
     M, N = row_off[-1], col_off[-1]
     rp2 = uniform_partition(M, S)

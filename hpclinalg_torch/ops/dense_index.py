@@ -36,6 +36,8 @@ def dense_getindex(A, key):
     from ..parallel.mesh import scatter_from_full
     from ..vector import DistVector
 
+    A.backend.require_stacked("DistDenseMatrix indexing "
+                              "(ops/dense_index.py)")
     if not isinstance(key, tuple) or len(key) != 2:
         raise TypeError("matrix indexing requires A[rows, cols]")
     rkey, ckey = key

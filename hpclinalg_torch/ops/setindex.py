@@ -216,6 +216,8 @@ def dense_setindex(M, key, value) -> None:
     DistDenseMatrix of shape (len(rows), len(cols)). Repeated ids keep
     their last write. The matrix stays on its device; its tensor is swapped
     for an updated copy."""
+    M.backend.require_stacked("DistDenseMatrix index assignment "
+                              "(ops/setindex.py)")
     from ..dense import DistDenseMatrix
     from ..parallel.mesh import allgather_full
 

@@ -38,7 +38,7 @@ On a process group (``Backend.group``) the plan is built from the global
 host structure, the same on every rank with no communication, so every
 rank picks the same engine and the same exchange; each rank uploads only
 its own rows of every table (``Backend.shard_tensor``) and runs the engine
-on its (1, ...) shard. SpMM raises there for now.
+on its (1, ...) shard, for SpMM as for SpMV.
 
 Every index table is checked on the host when the plan is built
 (``check_index``): an out-of-range index on the device would be a
@@ -341,7 +341,6 @@ def get_vector_plan(A, x) -> ExchangePlan:
 def get_spmm_plan(A, B) -> SpMVPlan:
     """The plan of ``A @ B`` with a dense B: the SpMV plan of an x on B's
     row partition, whose exchange moves B's rows whole."""
-    A.backend.require_stacked("SpMM (A @ B with a dense B)")
     return _get_plan(A, B.row_partition, B.row_partition_hash)
 
 

@@ -26,6 +26,16 @@ unpivoted LDLᵀ with static-pivot perturbation) and "lu" (unsymmetric on the
 symmetrized pattern, unpivoted LU with perturbation). Iterative refinement
 in ``DeviceFactorization`` compensates the perturbations.
 
+On a process group (``Backend.group``, one shard a process) every rank
+builds the same plan from the global pattern with no communication, keeps
+only its own rows of the per-shard tables and runs its own subtrees; the
+cross buffer is summed by ONE ``all_reduce`` a factorization (the JAX
+package's ``jnp.sum`` over the mesh axis), the top tree is factored
+replicated in every rank, and a solve sums the top right-hand side by one
+``all_reduce``. The perturbation and failure counts of the local fronts
+and their growth are gathered in one collective, so every rank reports
+the same global ``n_perturbed`` and ``growth``.
+
 Every index table is built once per pattern on the host, checked there,
 and kept as a device tensor in the engine (``cached_plan("device_mf")``).
 Where the reference drops out-of-range scatter slots (``mode="drop"``),
@@ -50,6 +60,7 @@ import torch
 from ..backend import numpy_dtype, torch_dtype
 from ..config import round_up
 from ..ops.cuda_ell import check_index
+from ..parallel import comm
 from . import symbolic
 from .ordering import amd_order
 
@@ -298,7 +309,8 @@ class DeviceScheduleError(ValueError):
 
 class DeviceMF:
     """Multifrontal engine for one sparsity pattern on the backend's
-    device, its S shards stacked on the leading axis."""
+    device, its S shards stacked on the leading axis (this process's one
+    shard on a process group)."""
 
     def __init__(self, A_csr: sp.csr_matrix, backend, kind: str = "ldl",
                  dtype=np.float64, row_partition=None):
@@ -466,6 +478,7 @@ class DeviceMF:
                     srcs.append(cat(sr))
                     dsts.append(cat(ds))
                 D, Sr = _pad2_sorted(dsts, srcs, BNN, nnzA)
+                D, Sr = self._mine(D), self._mine(Sr)
             m.a_src = self._dev("a_src", Sr, nnzA + 1)
             m.a_dst = self._dev("a_dst", D, BNN + 1)
 
@@ -489,8 +502,8 @@ class DeviceMF:
             if is_top:
                 D = _pad_sentinel([one(fronts_by_slot)], BNN)[0]
             else:
-                D = _pad_sentinel([one(fronts_by_slot[s]) for s in range(S)],
-                                  BNN)
+                D = self._mine(_pad_sentinel(
+                    [one(fronts_by_slot[s]) for s in range(S)], BNN))
             m.diag = self._dev("diag", D, BNN + 1)
 
         # -- extend-add maps --------------------------------------------------
@@ -620,22 +633,27 @@ class DeviceMF:
             if is_top:
                 cc, cr = one(fronts_by_slot, None)
                 hi = TOPM + 1
-                base = np.zeros(1, np.int64)
             else:
                 ccs, crs = zip(*[one(fronts_by_slot[s], s) for s in range(S)])
                 cc, cr = np.stack(ccs), np.stack(crs)
                 hi = SENT + 1
-                base = np.arange(S, dtype=np.int64)[:, None, None] * hi
-            m.ccol = self._dev("ccol", cc, hi)
-            m.crow = self._dev("crow", cr, hi)
             # the scatter-add of the updates: one sentinel slot for all the
             # padding would serialize the adds on it (sorted or atomic), so
             # the padding adds masked zeros at spread real slots
             live = cr != hi - 1
             spread = np.arange(cr.size, dtype=np.int64).reshape(cr.shape) \
                 % (hi - 1)
-            m.crow_add = self._dev("crow_add", (base + np.where(
-                live, cr, spread)).reshape(-1), base.size * hi)
+            add = np.where(live, cr, spread)
+            if is_top:
+                base = np.zeros(1, np.int64)
+            else:
+                cc, cr, live, add = (self._mine(a)
+                                     for a in (cc, cr, live, add))
+                base = np.arange(len(cc), dtype=np.int64)[:, None, None] * hi
+            m.ccol = self._dev("ccol", cc, hi)
+            m.crow = self._dev("crow", cr, hi)
+            m.crow_add = self._dev("crow_add", (base + add).reshape(-1),
+                                   base.size * hi)
             m.crow_live = self.backend.tensor(live[..., None])
 
         # -- finalize static tables -------------------------------------------
@@ -646,8 +664,9 @@ class DeviceMF:
             for (lp, lc), per_shard in sorted(x for x in ea_loc.items()
                                               if x[0][0] == l):
                 mc = self.local_levels[lc]
-                m.ea.append((lc,) + ea_tables(
-                    m, mc, *_pack_group_sharded(per_shard, mc.NF - mc.NC)))
+                m.ea.append((lc,) + ea_tables(m, mc, *(
+                    self._mine(a) for a in
+                    _pack_group_sharded(per_shard, mc.NF - mc.NC))))
         for l, m in enumerate(self.top_levels):
             pack_asm(m, l, True)
             pack_diag(m, top_fronts[l], True)
@@ -686,6 +705,7 @@ class DeviceMF:
                 for i, (bc, o, nr) in enumerate(per_shard[s]):
                     srcb[s, i], co[s, i], nrv[s, i] = bc, o, nr
             self._check_cross(co, nrv)
+            srcb, co, nrv = (self._mine(a) for a in (srcb, co, nrv))
             mc = self.local_levels[lc]
             self.cross_maps.append((lc, self._dev("cross srcb", srcb, mc.B),
                                     self._dev("cross co", co, self.CROSS + 1),
@@ -749,6 +769,13 @@ class DeviceMF:
         self._prep_cache = None
 
     # ------------------------------------------------------------------
+    def _mine(self, arr: np.ndarray) -> np.ndarray:
+        """This process's rows of a per-shard (S, ...) host table: all of
+        them stacked, its own on a group (the others are dropped here, so
+        ranks sharing a card do not each hold every shard's tables)."""
+        sh = self.backend.shards
+        return arr[sh.start: sh.stop]
+
     def _dev(self, name, arr, hi, dead_below_zero=False) -> torch.Tensor:
         """A static index table on the device, after checking on the host
         that every entry lies in [0, hi) (or is a dead -1 slot where the
@@ -769,9 +796,10 @@ class DeviceMF:
     # numeric factorization, level by level
     # ------------------------------------------------------------------
     def _local_level_body(self, m, Av, upds, eps):
-        """Assemble + extend-add + factor ONE local level batch. Returns
-        (fac tuple (S, B, ...), U (S, B, NR, NR), n_perturbed, failed)."""
-        S = self.S
+        """Assemble + extend-add + factor ONE local level batch of this
+        process's shards (S stacked, or 1). Returns (fac tuple (S, B, ...),
+        U (S, B, NR, NR), n_perturbed, failed)."""
+        S = self.backend.nlocal
         B, NC, NF = m.B, m.NC, m.NF
         BNN = B * NF * NF
         ar = torch.arange(S, device=self.device)[:, None]
@@ -789,9 +817,10 @@ class DeviceMF:
         return _front_kernel(self.kind, F4, NC, eps)
 
     def _cross_body(self, upds):
-        """Local subtree roots' updates -> replicated cross contributions
-        (one sum over the shard axis)."""
-        S = self.S
+        """Local subtree roots' updates -> replicated cross contributions:
+        one sum over the shard axis, and on a group over the ranks (the
+        factorization's one collective)."""
+        S = self.backend.nlocal
         cross = torch.zeros((S, self.CROSS), dtype=self.dtype,
                             device=self.device)
         ar = torch.arange(S, device=self.device)[:, None]
@@ -802,7 +831,7 @@ class DeviceMF:
             u = torch.where(valid, U[ar, srcb], 0)      # (S, C, NR, NR)
             cross.view(-1).index_add_(0, (idx.view(S, -1) + off).view(-1),
                                       u.view(-1))
-        return cross.sum(dim=0)
+        return comm.all_reduce(self.backend, cross.sum(dim=0))
 
     def _top_body(self, Av, crossp, eps):
         """Replicated top-tree factorization (small dense levels)."""
@@ -834,8 +863,9 @@ class DeviceMF:
 
     def factor(self, Avals, eps):
         """Avals: (nnzA,) values in global CSR order on the device.
-        Returns (local factors, top factors, n_perturbed, failed), the last
-        two 0-d device tensors."""
+        Returns (local factors, top factors, (n_perturbed, failed) of this
+        process's local fronts, (n_perturbed, failed) of the replicated top
+        tree), the counts 0-d device tensors."""
         # new factors invalidate the prepped (inverted-block) solve cache;
         # clearing it first also releases the old factor tensors before
         # the new ones allocate
@@ -856,7 +886,7 @@ class DeviceMF:
         crossp = self._cross_body(upds)
         del upds
         top_factors, ptop, ftop = self._top_body(Av, crossp, eps)
-        return loc_factors, top_factors, npert + ptop, failed + ftop
+        return loc_factors, top_factors, (npert, failed), (ptop, ftop)
 
     # ------------------------------------------------------------------
     # solve: wave sweeps on INVERTED diagonal blocks (prep_solve), so that
@@ -923,9 +953,10 @@ class DeviceMF:
     def _solve_impl(self, loc_factors, top_factors, bloc, tr=False):
         # bloc: (S, SVPAD, k) — the in_plan gather of the row-distributed
         # RHS into the per-shard compact spaces (local columns at [0, M_s),
-        # the replicated top copy at [Mmax, Mmax+TOPM) on shard 0 only).
+        # the replicated top copy at [Mmax, Mmax+TOPM) on shard 0 only);
+        # (1, SVPAD, k), this process's shard, on a group
         dt = self.dtype
-        S = self.S
+        S = self.backend.nlocal
         SENT = self.SVPAD          # sentinel slot, kept zero
         TOPM, Mmax = self.TOPM, self.Mmax
         k = bloc.shape[2]
@@ -946,10 +977,12 @@ class DeviceMF:
             zloc[:, SENT] = 0
 
         # forward, top phase: ONE cross-shard reduction of the compact top
-        # region (b_top rides shard 0's slice; others carry only updates)
+        # region (b_top rides shard 0's slice; others carry only updates),
+        # over the stack and on a group over the ranks
         ytop = torch.zeros((TOPM + 1, k), dtype=dt, device=self.device)
         if TOPM:
-            ytop[:TOPM] = (y + contrib)[:, Mmax: Mmax + TOPM].sum(dim=0)
+            ytop[:TOPM] = comm.all_reduce(
+                self.backend, (y + contrib)[:, Mmax: Mmax + TOPM].sum(dim=0))
         for m, fac in zip(self.top_levels, top_factors):
             z, w = self._fwd(fac, ytop[m.ccol], tr)
             ytop[m.ccol] = z
@@ -1026,8 +1059,14 @@ def device_engine(A, kind: str, dtype) -> DeviceMF:
                                      A.backend.key), build)
 
 
-def _factor_leaves(loc, top):
-    return [x for fac in (*loc, *top) for x in fac if x.numel()]
+def _leaves_amax(factors, like) -> torch.Tensor:
+    """The largest |entry| of a list of factor tuples as a 0-d f64 tensor
+    on ``like``'s device (0 for none)."""
+    leaves = [x for fac in factors for x in fac if x.numel()]
+    if not leaves:
+        return like.new_zeros((), dtype=torch.float64)
+    return torch.stack([torch.abs(x).amax().to(torch.float64)
+                        for x in leaves]).amax()
 
 
 class DeviceFactorization:
@@ -1036,8 +1075,6 @@ class DeviceFactorization:
     on the device end to end: gather in, wave solves, scatter out."""
 
     def __init__(self, A, kind: str = "ldl", dtype=None):
-        A.backend.require_stacked("the device multifrontal solver "
-                                  "(solver/device_mf.py)")
         self.A = A
         self.backend = A.backend
         self.structural_hash = A.hash
@@ -1057,25 +1094,32 @@ class DeviceFactorization:
         st = A.structure
         nnzb = np.concatenate([[0], np.cumsum(st.nnz_local)]).astype(np.int64)
         Avals = allgather_full(A.nzval, nnzb, self.backend)  # (nnzA,) device
-        anorm = float(torch.abs(A.nzval).max()) if A.nzval.numel() else 0.0
+        # the norm of the gathered values: the same eps, and so the same
+        # top pivots' clamp, in every rank of a group
+        anorm = float(torch.abs(Avals).max()) if Avals.numel() else 0.0
         eps = _PERT_REL * (anorm if anorm > 0 else 1.0)  # relative, no floor
         # drop the previous factors BEFORE factoring: old + new + temps
         # together may not fit the device
         self.factors = None
         self._A64 = None
-        loc, top, npert, failed = self.engine.factor(Avals, eps)
-        self.factors = (loc, top, npert)
+        loc, top, (p_loc, f_loc), (p_top, f_top) = \
+            self.engine.factor(Avals, eps)
         # growth monitor: the device engine has no numerical pivoting, so a
         # legal-but-tiny pivot shows up as large |L| growth; flag it and
         # escalate the solve to the full-budget extended refinement (the
-        # eps clamp alone only catches |pivot| < eps). One host read for
-        # the perturbation count, the failure count and the growth.
-        leaves = _factor_leaves(loc, top)
-        amax = torch.stack([torch.abs(x).amax().to(torch.float64)
-                            for x in leaves]).amax() if leaves \
-            else npert.new_zeros((), dtype=torch.float64)
+        # eps clamp alone only catches |pivot| < eps). The local fronts'
+        # counts and growth are this process's: one gather makes them the
+        # group's (the replicated top tree's are added once), and one host
+        # read takes the perturbation count, the failure count and the
+        # growth.
+        f64 = torch.float64
+        rows = comm.all_gather_rows(self.backend, torch.stack(
+            [p_loc.to(f64), f_loc.to(f64), _leaves_amax(loc, p_loc)])[None])
         np_, nfail, g = torch.stack(
-            [npert.to(torch.float64), failed.to(torch.float64), amax]).tolist()
+            [rows[:, 0].sum() + p_top, rows[:, 1].sum() + f_top,
+             torch.maximum(rows[:, 2].max(), _leaves_amax(top, p_loc))]
+        ).tolist()
+        self.factors = (loc, top, int(np_))
         self.n_perturbed = int(np_)
         # the reference reads the growth in f32
         self.growth = float(np.float32(g))
@@ -1218,6 +1262,11 @@ class DeviceFactorization:
         if not is_dist:
             return xd.to_numpy()
         return xd if xd.dtype == b.dtype else to_dist(xd.data)
+
+    def solve_transpose(self, b, refine: int | None = None):
+        """Solve Aᵀ x = b: ``solve(b, transpose=True)``, as the host
+        engine's ``Factorization.solve_transpose``."""
+        return self.solve(b, transpose=True, refine=refine)
 
     def solve_matrix(self, B, transpose: bool = False,
                      refine: int | None = None,

@@ -1,6 +1,6 @@
 """Per-rank bodies of the distributed checks, run on every rank of a process
-group by ``tests/test_torch_dist.py`` (gloo, CPU) and ``chip_smoke.py``
-phase 12 (NCCL or gloo on the card):
+group by ``tests/test_torch_dist*.py`` (gloo, CPU) and ``chip_smoke.py``
+phases 12 and 13 (NCCL or gloo on the card):
 
     from hpclinalg_torch.parallel.launch import run_ranks
     ranks = run_ranks("hpclinalg_torch.tools.dist_checks:on_rank", 4,
@@ -26,8 +26,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .matrices import (banded_design, complex_values, helmholtz, laplace2d,
-                       power_law, random_8)
+from .matrices import (banded_design, between_eigenvalues, complex_values,
+                       helmholtz, laplace2d, power_law, random_8)
 
 
 def _np(t) -> np.ndarray:
@@ -390,6 +390,254 @@ def solves(be, k: int = 10, seed: int = 4) -> dict:
     return {f"solve.{k}": _np(v) for k, v in out.items()}
 
 
+# -- the device solver and the dense containers ------------------------------
+
+def solver_inputs(S: int, k: int = 10, seed: int = 12) -> dict:
+    """The host inputs of ``device_solvers``, for the JAX package too:
+    ``L`` laplace2d(k) on ``p``, a partition with an empty shard, and
+    ``L2`` = 2 L + I on its pattern; ``N`` = L - sigma I, indefinite
+    (sigma between two of L's eigenvalues); ``Lu`` L plus a seeded random
+    pattern (unsymmetric); ``H`` the c128 Helmholtz operator on
+    laplace2d(k); ``b``, ``bc`` (complex) and ``B`` (n x 3) right-hand
+    sides."""
+    rng = np.random.default_rng(seed)
+    L = laplace2d(k)
+    n = L.shape[0]
+    Lu = (L + sp.random(n, n, 0.03, random_state=rng)).tocsr()
+    return {"L": L, "L2": (2.0 * L + sp.eye(n)).tocsr(),
+            "N": (L - between_eigenvalues(k, 2.0) * sp.eye(n)).tocsr(),
+            "Lu": Lu, "H": helmholtz(k),
+            "p": empty_shard_partition(n, S),
+            "b": rng.standard_normal(n),
+            "bc": rng.standard_normal(n) + 1j * rng.standard_normal(n),
+            "B": rng.standard_normal((n, 3))}
+
+
+def plan_digest(eng) -> str:
+    """A digest of a device multifrontal plan's global scalars (order,
+    shard count, cross buffer, top set, solve space, the owner map and
+    every level's padded geometry) and of its top tables: the same in
+    every rank of a group and in the stacked plan at that S."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    levels = eng.local_levels + eng.top_levels
+    h.update(np.asarray([eng.n, eng.S, eng.CROSS, eng.TOPM, eng.Mmax,
+                         eng.SVPAD, eng.n_topcols], np.int64).tobytes())
+    h.update(np.asarray(eng.owner, np.int64).tobytes())
+    h.update(np.asarray([(m.B, m.NC, m.NF) for m in levels],
+                        np.int64).tobytes())
+    tables = [eng.topcols]
+    for m in eng.top_levels:
+        tables += [m.a_src, m.a_dst, m.diag, m.ccol, m.crow, m.crow_add]
+        tables += [t for ea in m.ea for t in ea[1:]]
+        tables += [t for ea in m.ea_cross for t in ea[:4]]
+    for t in tables:
+        h.update(_np(t).tobytes())
+    return h.hexdigest()
+
+
+def _factor_stats(F, tag: str) -> dict:
+    """A device factorization's global counts, its engine's owner set,
+    cross buffer and plan digest under ``tag``."""
+    eng = F.engine
+    return {f"{tag}.n_perturbed": F.n_perturbed, f"{tag}.growth": F.growth,
+            f"{tag}.owners": np.unique(eng.owner[eng.owner >= 0]),
+            f"{tag}.cross": eng.CROSS, f"{tag}.digest": plan_digest(eng)}
+
+
+def device_solvers(be, k: int = 10, seed: int = 12) -> dict:
+    """The device multifrontal solver on ``solver_inputs``: ``ldlt(spd=
+    True)`` on a partition with an empty shard (DistVector and host-array
+    right-hand sides, ``solve_matrix`` of a DistDenseMatrix), its
+    ``refactorize`` with new values (a cache hit: no plan is built), the
+    indefinite ``ldlt``, ``lu`` with its transposed solve, the c128
+    ``ldlt``, a Cholesky of the indefinite matrix (which must raise
+    ValueError in every rank) and ``ht.solve`` on a ``solver="device"``
+    backend; with the fallback's warning an error. A solution gives its
+    rows and whole, a factorization its counts, owners and digest."""
+    import warnings
+
+    import hpclinalg_torch as ht
+    from ..solver.device_mf import DeviceFactorization
+
+    inp = solver_inputs(be.nshards, k, seed)
+    p = inp["p"]
+    out, vecs = {}, {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        A = ht.DistSparseMatrix.from_scipy(inp["L"], be, row_partition=p)
+        b = ht.DistVector.from_global(inp["b"], be, partition=p)
+        F = ht.ldlt(A, method="device", spd=True)
+        out["chol.device"] = isinstance(F, DeviceFactorization)
+        vecs["chol"] = F.solve(b)
+        out["chol_host.full"] = F.solve(inp["b"])
+        X = F.solve_matrix(ht.DistDenseMatrix.from_global(inp["B"], be,
+                                                          row_partition=p))
+        out.update({"chol_matrix.local": X.data,
+                    "chol_matrix.full": X.to_numpy(),
+                    **_factor_stats(F, "chol")})
+        eng, sizes = F.engine, ht.cache_sizes()
+        A2 = A.with_values(ht.DistSparseMatrix.from_scipy(
+            inp["L2"], be, row_partition=p).nzval)
+        vecs["refactor"] = F.refactorize(A2).solve(b)
+        out["refactor.hit"] = F.engine is eng and ht.cache_sizes() == sizes
+
+        Nd = ht.DistSparseMatrix.from_scipy(inp["N"], be)
+        bu = ht.DistVector.from_global(inp["b"], be)
+        Fl = ht.ldlt(Nd, method="device")
+        vecs["ldl"] = Fl.solve(bu)
+        out.update({**_factor_stats(Fl, "ldl"), **chol_failure(be, k)})
+
+        Fu = ht.lu(ht.DistSparseMatrix.from_scipy(inp["Lu"], be),
+                   method="device")
+        vecs["lu"] = Fu.solve(bu)
+        vecs["lu_t"] = Fu.solve_transpose(bu)
+        out.update(_factor_stats(Fu, "lu"))
+
+        Hd = ht.DistSparseMatrix.from_scipy(inp["H"], be)
+        Fc = ht.ldlt(Hd, method="device")
+        vecs["c128"] = Fc.solve(ht.DistVector.from_global(inp["bc"], be))
+        out.update(_factor_stats(Fc, "c128"))
+
+        dev = replace(be, solver="device")
+        ht.clear_plan_cache("backslash")
+        Ad = ht.DistSparseMatrix.from_scipy(inp["L"], dev)
+        vecs["backslash"] = ht.solve(Ad, ht.DistVector.from_global(
+            inp["b"], dev))
+        out["backslash.device"] = isinstance(
+            next(iter(ht.BackslashCache._cache().values())),
+            DeviceFactorization)
+        ht.clear_plan_cache("backslash")
+    for name, v in vecs.items():
+        out[f"{name}.local"] = v.data
+        out[f"{name}.full"] = v.to_numpy()
+    return {f"dsol.{k}": _np(v) for k, v in out.items()}
+
+
+# the SpMM engines of ``dense_ops``: name -> (matrix of dense_inputs, spmv
+# module limits its plan is built under); the segment engine is the
+# fallback of a plan with no ELL layout
+SPMM_CASES = {"dia": ("L", {}), "densify": ("R", {}),
+              "ell": ("W", {"DENSE_MAX_ELEMS": 0}),
+              "segment": ("W", {"DENSE_MAX_ELEMS": 0})}
+
+
+def dense_inputs(S: int, m: int = 37, c: int = 5, seed: int = 13) -> dict:
+    """The host inputs of ``dense_ops``, for the JAX package too: ``D``,
+    ``D2`` (m x c) on ``p``, a partition with an empty shard; ``E`` (c x
+    4), ``v`` (c), ``w`` (m); the SpMM matrices ``L`` laplace2d(6), ``R``
+    a small random one and ``W`` a random one with a long row (past the
+    ELL width, into the COO tail), each with a dense right-hand side
+    ``B_<name>`` (3 columns, on ``pb``: another uneven partition);
+    ``Sp`` a sparse (c x 9) right factor of ``D``, and ``Ls``/``Y`` a
+    laplace2d(5) system with 2 right-hand sides. ``R`` has more distinct
+    diagonals a shard than the DIA engine takes at 4 shards."""
+    from ..partition import uniform_partition
+
+    rng = np.random.default_rng(seed)
+    W = sp.random(60, 50, 0.06, format="lil", random_state=rng)
+    W[3, :] = rng.standard_normal(50)
+    mats = {"L": laplace2d(6), "R": sp.random(120, 100, 0.1, format="csr",
+                                              random_state=rng),
+            "W": W.tocsr()}
+    out = {"D": rng.standard_normal((m, c)),
+           "D2": rng.standard_normal((m, c)), "E": rng.standard_normal((c, 4)),
+           "v": rng.standard_normal(c), "w": rng.standard_normal(m),
+           "p": empty_shard_partition(m, S), "pu": uniform_partition(m, S),
+           "Sp": sp.random(c, 9, 0.5, format="csr", random_state=rng),
+           "Ls": laplace2d(5), "Y": rng.standard_normal((25, 2)), **mats}
+    for name, M in mats.items():
+        out[f"B_{name}"] = rng.standard_normal((M.shape[1], 3))
+        out[f"pb_{name}"] = empty_shard_partition(M.shape[1], S)
+    return out
+
+
+def dense_ops(be, m: int = 37, c: int = 5, seed: int = 13) -> dict:
+    """The dense containers on ``dense_inputs``: ``from_global``/
+    ``to_numpy`` on a partition with an empty shard, arithmetic, ``D @ v``,
+    ``rmatvec`` and ``D.T @ w``, ``D @ E``, the materialised transpose,
+    ``sum`` over all three axes, ``norm`` (1, 2, inf), ``opnorm`` (1,
+    inf), a repartition, sparse @ dense on the DIA, densify, ELL (with its
+    COO tail) and segment engines, dense @ sparse through the densified
+    block and through the transposes, and the host ``solve_matrix`` and
+    ``ht.solve(A, DistDenseMatrix)``. A matrix gives its rows and whole, a
+    vector its rows and whole, a reduction its value."""
+    import hpclinalg_torch as ht
+    from ..ops import mixed as mixed_mod
+    from ..ops import spmv as spmv_mod
+
+    inp = dense_inputs(be.nshards, m, c, seed)
+    p = inp["p"]
+    D = ht.DistDenseMatrix.from_global(inp["D"], be, row_partition=p)
+    D2 = ht.DistDenseMatrix.from_global(inp["D2"], be, row_partition=p)
+    v = ht.DistVector.from_global(inp["v"], be)
+    w = ht.DistVector.from_global(inp["w"], be, partition=p)
+    E = ht.DistDenseMatrix.from_global(inp["E"], be)
+    mats = {"D": D, "arith": 2.0 * D + D2 - 1.5, "neg_abs": abs(-D),
+            "matmat": D @ E, "transpose": D.transpose_materialized(),
+            "lazy_matmat": D.T @ D, "repartition": D.repartition(inp["pu"])}
+    vecs = {"matvec": D @ v, "rmatvec": D.rmatvec(w), "lazy_rmatvec": D.T @ w,
+            "sum1": D.sum(axis=1)}
+    out = {"sum": D.sum(), "sum0": D.sum(axis=0), "norm2": D.norm(),
+           "norm1": D.norm(1), "norminf": D.norm(np.inf),
+           "opnorm1": D.opnorm(1), "opnorminf": D.opnorm(np.inf),
+           "transpose.col_partition": mats["transpose"].col_partition}
+    for name, (mat, limits) in SPMM_CASES.items():
+        no_ell = {"_build_ell": lambda self, A: None} if name == "segment" \
+            else {}
+        M = ht.DistSparseMatrix.from_scipy(inp[mat], be)
+        B = ht.DistDenseMatrix.from_global(inp[f"B_{mat}"], be,
+                                           row_partition=inp[f"pb_{mat}"])
+        ht.clear_plan_cache("vector_plan")
+        with patched(spmv_mod, **limits), \
+                patched(spmv_mod.SpMVPlan, **no_ell):
+            plan = spmv_mod.get_spmm_plan(M, B)
+        mats[f"spmm_{name}"] = M @ B
+        out[f"spmm_{name}.engine"] = "dia" if plan.offsets is not None else (
+            "densify" if plan.densify else "ell" if plan.ell else "segment")
+    ht.clear_plan_cache("vector_plan")
+    Sp = ht.DistSparseMatrix.from_scipy(inp["Sp"], be)
+    mats["dxs_densify"] = D @ Sp
+    with patched(mixed_mod, DXS_DENSIFY_MAX_ELEMS=0):
+        mats["dxs_transposes"] = D @ Sp
+    Ls = ht.DistSparseMatrix.from_scipy(inp["Ls"], be)
+    Y = ht.DistDenseMatrix.from_global(inp["Y"], be)
+    mats["host_solve_matrix"] = ht.ldlt(Ls).solve_matrix(Y)
+    ht.clear_plan_cache("backslash")
+    mats["backslash_dense"] = ht.solve(Ls, Y)
+    ht.clear_plan_cache("backslash")
+    for name, M in mats.items():
+        out[f"{name}.local"] = M.data
+        out[f"{name}.full"] = M.to_numpy()
+        out[f"{name}.row_partition"] = M.row_partition
+    for name, x in vecs.items():
+        out[f"{name}.local"] = x.data
+        out[f"{name}.full"] = x.to_numpy()
+    return {f"dense.{k}": _np(v) for k, v in out.items()}
+
+
+def solver_checks(be) -> dict:
+    """The bodies of ``tests/test_torch_dist_solvers.py``."""
+    return {**device_solvers(be), **dense_ops(be)}
+
+
+def chol_failure(be, k: int = 10) -> dict:
+    """A device Cholesky of ``solver_inputs``' indefinite N: 1 if it
+    raised ValueError in this rank."""
+    import hpclinalg_torch as ht
+
+    L = laplace2d(k)
+    N = (L - between_eigenvalues(k, 2.0) * sp.eye(L.shape[0])).tocsr()
+    try:
+        ht.ldlt(ht.DistSparseMatrix.from_scipy(N, be), method="device",
+                spd=True)
+    except ValueError:
+        return {"chol_failure.raised": np.asarray(1)}
+    return {"chol_failure.raised": np.asarray(0)}
+
+
 # -- utilities, guards, the process --------------------------------------------------
 
 def utilities(be, n: int = 37, k: int = 5, seed: int = 6) -> dict:
@@ -442,8 +690,6 @@ def guarded_ops(be) -> dict:
     n = 16
     A = ht.DistSparseMatrix.from_scipy(laplace2d(4), be)
     x = ht.DistVector.from_global(np.arange(n, dtype=np.float64), be)
-    dev = ht.DistSparseMatrix.from_scipy(laplace2d(4),
-                                         replace(be, solver="device"))
 
     def setv():
         x[1:3] = 1.0
@@ -451,8 +697,15 @@ def guarded_ops(be) -> dict:
     def setA():
         A[0:2, 0:2] = 1.0
 
+    D = ht.DistDenseMatrix.from_global(np.ones((n, 2)), be)
+
+    def setD():
+        D[0:2, 0:1] = 2.0
+
     return {
-        "dense": lambda: ht.DistDenseMatrix.from_global(np.ones((n, 2)), be),
+        "dense_getindex": lambda: D[0:2, 0:1], "dense_setindex": setD,
+        "dense_mapslices_rows": lambda: D.mapslices(lambda r: 2 * r, axis=1),
+        "dense_cat": lambda: ht.cat(D, D),
         "vector_getindex": lambda: x[1:3], "vector_setindex": setv,
         "sparse_getindex": lambda: A[0:2, 0:2], "sparse_setindex": setA,
         "cat": lambda: ht.cat(A, A), "blockdiag": lambda: ht.blockdiag(A, A),
@@ -463,9 +716,6 @@ def guarded_ops(be) -> dict:
         "tr": lambda: A.tr(), "maximum": lambda: A.maximum(),
         "minimum": lambda: A.minimum(), "mean": lambda: A.mean(),
         "map_rows": lambda: ht.map_rows(lambda r: 2 * r, x),
-        "device_ldlt": lambda: ht.ldlt(A, method="device", spd=True),
-        "device_lu": lambda: ht.lu(A, method="device"),
-        "device_backslash": lambda: ht.solve(dev, x),
         "warmup": lambda: ht.warmup(be),
     }
 
@@ -555,16 +805,23 @@ def card_matrices(k: int, n: int, ridge: tuple, seed: int) -> dict:
     matrix N = AᵀA + λI (K3), and phase 11's complex ones: the Helmholtz
     operator on laplace2d(k) (K1 in c128) and the random matrix and N
     with seeded imaginary parts (K2 and K3 in c128)."""
+    rm = ridge_matrices(ridge, seed)
+    R8 = random_8(n, seed + 1)
+    return {"lap": laplace2d(k), "random8": R8,
+            "power_law": power_law(n, seed + 2), **rm, "helm": helmholtz(k),
+            "random8_c128": complex_values(R8, seed + 9),
+            "N_c128": complex_values(rm["N"], seed + 10)}
+
+
+def ridge_matrices(ridge: tuple, seed: int) -> dict:
+    """The ridge design A (``ridge`` = (m, n, λ): m x n,
+    ``banded_design``), its right-hand side and scipy's normal matrix
+    N = AᵀA + λI: ``card_matrices``' ``design``, ``design_b`` and ``N``."""
     m, nr, lam = ridge
     Ab, bh = banded_design(m, nr, seed + 8)
     N = (Ab.T @ Ab + lam * sp.eye(nr)).tocsr()
     N.sort_indices()
-    R8 = random_8(n, seed + 1)
-    return {"lap": laplace2d(k), "random8": R8,
-            "power_law": power_law(n, seed + 2), "N": N,
-            "design": Ab, "design_b": bh, "helm": helmholtz(k),
-            "random8_c128": complex_values(R8, seed + 9),
-            "N_c128": complex_values(N, seed + 10)}
+    return {"design": Ab, "design_b": bh, "N": N}
 
 
 # the products of ``card``: name -> (matrix of card_matrices, the
@@ -776,6 +1033,140 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     return {f"card.{k}": _np(v) for k, v in out.items()}
 
 
+def _rel_res(M, x, b) -> float:
+    return float(np.linalg.norm(M @ x - b) / np.linalg.norm(b))
+
+
+def solvers(be, k: int = 512, k_small: int = 256,
+            ridge_shape: tuple = (1_000_000, 16_384, 1e-2), ycols: int = 64,
+            seed: int = 0, mats: dict | None = None) -> dict:
+    """chip_smoke.py phase 13 on this rank's shard, f64 unless said, with
+    the host fallback's warning made an error: ``ldlt(method="device",
+    spd=True)`` of laplace2d(k) and its solve; the indefinite ``ldlt`` of
+    laplace2d(k_small) - sigma I, ``lu`` of laplace2d(k_small) with
+    unsymmetric values and its transposed solve, and the c128 ``ldlt`` of
+    Helmholtz(k_small); then the multi-response ridge on ``mats``'
+    design and N (``ridge_matrices``): Y (m x ``ycols``) a
+    DistDenseMatrix, R = At @ Y (SpMM), X = ldlt(N, method="device",
+    spd=True).solve_matrix(R), G = X.T @ X (the dense transpose), and the
+    single response x = solve(At @ b). Every plan cache is cleared first;
+    the kernels' launch counters are set to 0 just before the drive and
+    read just after (``launches.*``). ``check.*`` are this rank's
+    residuals against scipy (the ridge's through N's SpMM). On a CUDA
+    device it then times the Cholesky's engine factor (CUDA events and the
+    host's enqueue time), its solve, an ``all_reduce`` of a cross buffer
+    (events and host time), R = At @ Y and the multi-RHS solve."""
+    import warnings
+
+    import hpclinalg_torch as ht
+    from ..parallel import comm
+    from ..parallel.mesh import allgather_full
+    from ..solver.device_mf import DeviceFactorization
+
+    t0 = time.perf_counter()
+    ht.clear_plan_cache()
+    mats = mats or ridge_matrices(ridge_shape, seed)
+    rng = np.random.default_rng(seed + 30)
+    L = laplace2d(k)
+    bh = rng.standard_normal(L.shape[0])
+    Ls = laplace2d(k_small)
+    ns = Ls.shape[0]
+    Nind = (Ls - between_eigenvalues(k_small, 0.5) * sp.eye(ns)).tocsr()
+    Lu = Ls.copy()
+    Lu.data = Lu.data * (1.0 + 0.2 * rng.random(Lu.nnz))
+    H = helmholtz(k_small)
+    b2h = rng.standard_normal(ns)
+    bch = rng.standard_normal(ns) + 1j * rng.standard_normal(ns)
+    Y = rng.standard_normal((ridge_shape[0], ycols))
+    A = ht.DistSparseMatrix.from_scipy(L, be)
+    b = ht.DistVector.from_global(bh, be)
+    systems = {name: ht.DistSparseMatrix.from_scipy(M, be)
+           for name, M in (("ldl", Nind), ("lu", Lu), ("c128", H))}
+    b2 = ht.DistVector.from_global(b2h, be)
+    bc = ht.DistVector.from_global(bch, be)
+    Ad = ht.DistSparseMatrix.from_scipy(mats["design"], be)
+    Nr = ht.DistSparseMatrix.from_scipy(mats["N"], be)
+    Yd = ht.DistDenseMatrix.from_global(Y, be)
+    bd = ht.DistVector.from_global(mats["design_b"], be)
+    del Y
+    if be.device.type == "cuda":
+        torch.cuda.synchronize()
+
+    out = {"secs.setup": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        F, out["time.chol_first_s"] = _first_s(
+            be, lambda: ht.ldlt(A, method="device", spd=True))
+        x = F.solve(b)
+        out.update({"chol.device": isinstance(F, DeviceFactorization),
+                    "chol.x.local": x.data,
+                    "chol.cross_bytes": F.engine.CROSS
+                    * F.engine.dtype.itemsize,
+                    "check.chol_res": _rel_res(L, x.to_numpy(), bh),
+                    **_factor_stats(F, "chol")})
+        for name, M, rhs in (("ldl", Nind, b2), ("lu", Lu, b2),
+                             ("c128", H, bc)):
+            Fs = ht.lu(systems[name], method="device") if name == "lu" \
+                else ht.ldlt(systems[name], method="device")
+            xs = Fs.solve(rhs)
+            out.update({f"{name}.x.local": xs.data,
+                        f"check.{name}_res": _rel_res(M, xs.to_numpy(),
+                                                      rhs.to_numpy()),
+                        **_factor_stats(Fs, name)})
+            if name == "lu":
+                xt = Fs.solve_transpose(rhs)
+                out.update({"lu_t.x.local": xt.data,
+                            "check.lu_t_res": _rel_res(
+                                Lu.T, xt.to_numpy(), b2h)})
+            del Fs
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        At = Ad.T.materialize()
+        R = At @ Yd
+        FN, out["time.ridge_chol_first_s"] = _first_s(
+            be, lambda: ht.ldlt(Nr, method="device", spd=True))
+        X = FN.solve_matrix(R)
+        G = X.T @ X
+        rhs = At @ bd
+        xr = FN.solve(rhs)
+        out.update({"ridge.R.local": R.data, "ridge.X.local": X.data,
+                    "ridge.G.local": G.data, "ridge.G.full": G.to_numpy(),
+                    "ridge.x.local": xr.data,
+                    "ridge.device": isinstance(FN, DeviceFactorization),
+                    "check.ridge_multi_res": float((Nr @ X - R).norm()
+                                                   / R.norm()),
+                    "check.ridge_res": float((Nr @ xr - rhs).norm()
+                                             / rhs.norm()),
+                    **_factor_stats(FN, "ridge_chol")})
+    out.update({f"launches.{k}": v for k, v in launch_counts().items()})
+    out.update({"secs.solvers": secs, "secs.ridge": time.perf_counter() - t0})
+
+    if be.device.type == "cuda":
+        eng = F.engine
+        nnzb = np.concatenate([[0], np.cumsum(A.structure.nnz_local)])
+        Avals = allgather_full(A.nzval, nnzb, be)
+        eps = 1e-10 * float(Avals.abs().max())
+        buf = torch.zeros(eng.CROSS, dtype=eng.dtype, device=be.device)
+        out.update({
+            "time.chol_factor_ms": events_ms(lambda: eng.factor(Avals, eps),
+                                             reps=10),
+            "time.chol_factor_host_ms": host_ms(
+                lambda: eng.factor(Avals, eps), reps=10),
+            "time.chol_solve_ms": events_ms(lambda: F.solve(b, refine=0),
+                                            reps=10),
+            "time.cross_all_reduce_ms": events_ms(
+                lambda: comm.all_reduce(be, buf)),
+            "time.cross_all_reduce_host_ms": host_ms(
+                lambda: comm.all_reduce(be, buf), reps=50),
+            "time.ridge_AtY_ms": events_ms(lambda: At @ Yd, reps=5, warm=1),
+            "time.ridge_solve_matrix_ms": events_ms(
+                lambda: FN.solve_matrix(R), reps=3, warm=1)})
+    return {f"sol.{k}": _np(v) for k, v in out.items()}
+
+
 def host_profile(fn, calls: int = 200, top: int = 12) -> str:
     """Where the host time of ``fn`` goes, over ``calls`` calls queued
     without a wait, as JSON: the ``top`` Python functions by their own
@@ -831,8 +1222,10 @@ def checks(be) -> dict:
 
 
 BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
-          "spmv": spmv, "algebra": algebra, "cg": cg, "solves": solves, "utilities": utilities,
-          "guards": guards, "card": card}
+          "spmv": spmv, "algebra": algebra, "cg": cg, "solves": solves,
+          "utilities": utilities, "guards": guards, "card": card,
+          "solver_checks": solver_checks, "chol_failure": chol_failure,
+          "solvers": solvers}
 
 
 def on_rank(device: str, body: str, kwargs: dict) -> dict:

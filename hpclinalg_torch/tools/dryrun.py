@@ -1,6 +1,7 @@
-"""The port's ``dryrun_multichip``: one distributed CG run and a host solve
-over n ranks of a ``torch.distributed`` process group, the analogue of the
-JAX package's ``__graft_entry__.dryrun_multichip`` over an n-device mesh.
+"""The port's ``dryrun_multichip``: one distributed CG run, a host solve and
+the device factor + solve over n ranks of a ``torch.distributed`` process
+group, the analogue of the JAX package's ``__graft_entry__.dryrun_multichip``
+over an n-device mesh.
 
     python -m hpclinalg_torch.tools.dryrun [n]      # n NCCL ranks, a card each
     python -m hpclinalg_torch.tools.dryrun [n] --device cpu   # n gloo ranks
@@ -9,12 +10,15 @@ It runs what the port runs on a group: 20 CG steps on laplace2d(16) in
 f32 (the halo exchange, the SpMV, the all-reduced dots), with the residual
 below a tenth of its start, then a host ``ldlt`` solve (rank 0 factors)
 with its residual below 1e-5 in f32 and 1e-10 in f64, then the JAX
-function's complex part (``__graft_entry__._dryrun_complex``) in native
-complex64: the SpMV of laplace2d(12) - 0.4 I + 0.05i I within 1e-3 of
-scipy's (relative), and ``ht.lu(A).solve(b)`` through the host LU (rank 0
-factors) with its residual below 1e-5. The JAX function's device LDLᵀ/LU
-is not run: the device multifrontal solver over a group is a later slice
-(ROADMAP.md queue 1).
+function's device part over the group in f32: ``ht.ldlt(A,
+method="device")`` with local subtrees mapped to the ranks and its
+residual below 1e-5, and ``ht.lu(method="device")`` on A plus a seeded
+random pattern (``sp.random(n, n, 0.02, random_state=default_rng(0))``)
+with its residual below 1e-5; then the complex part
+(``__graft_entry__._dryrun_complex``) in native complex64: the SpMV of
+laplace2d(12) - 0.4 I + 0.05i I within 1e-3 of scipy's (relative), and
+``ht.lu(A).solve(b)`` through the host LU (rank 0 factors) with its
+residual below 1e-5.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 from .matrices import laplace2d
 
 SOLVE_RES = {np.float32: 1e-5, np.float64: 1e-10}
+DEVICE_RES = 1e-5
 COMPLEX_SPMV_RTOL = 1e-3
 COMPLEX_LU_RES = 1e-5
 
@@ -71,8 +76,42 @@ def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
             raise AssertionError(f"host ldlt solve residual {res} in "
                                  f"{np.dtype(dt).name} is not below {tol}")
         out[f"solve_residual_{np.dtype(dt).name}"] = res
+    out.update(_dryrun_device(be, L, A, b))
     out.update(_dryrun_complex(be))
     return out
+
+
+def _dryrun_device(be, L, A, b) -> dict:
+    """The device part (``__graft_entry__.py:121-141``) on the group, in
+    A's f32: the device LDLᵀ of A, with local subtrees mapped, and the
+    device LU of A plus a seeded random pattern, each solve's residual
+    below DEVICE_RES."""
+    import scipy.sparse as sp
+
+    import hpclinalg_torch as ht
+
+    n = L.shape[0]
+    ones = np.ones(n)
+    F = ht.ldlt(A, method="device")
+    mapped = bool((F.engine.owner >= 0).any())
+    if not mapped:
+        raise AssertionError("no local subtrees mapped")
+    res = float(np.linalg.norm(L @ F.solve(b).to_numpy() - ones)
+                / np.linalg.norm(ones))
+    if not res < DEVICE_RES:
+        raise AssertionError(f"device ldlt residual {res} is not below "
+                             f"{DEVICE_RES}")
+    Au = (L + sp.random(n, n, 0.02, random_state=np.random.default_rng(0),
+                        dtype=np.float64).astype(np.float32)).tocsr()
+    Aud = ht.DistSparseMatrix.from_scipy(Au, be, dtype=np.float32)
+    resu = float(np.linalg.norm(
+        Au @ ht.lu(Aud, method="device").solve(b).to_numpy() - 1.0)
+        / np.linalg.norm(ones))
+    if not resu < DEVICE_RES:
+        raise AssertionError(f"device lu residual {resu} is not below "
+                             f"{DEVICE_RES}")
+    return {"device_ldlt_residual": res, "device_lu_residual": resu,
+            "device_ldlt_local_subtrees": mapped}
 
 
 def _dryrun_complex(be) -> dict:

@@ -22,6 +22,16 @@ def helmholtz(k, shift=0.5, damp=0.05):
     return (laplace2d(k) - shift * sp.eye(n) + damp * 1j * sp.eye(n)).tocsr()
 
 
+def between_eigenvalues(k, target):
+    """The midpoint of the two eigenvalues of laplace2d(k) around target:
+    laplace2d(k) - sigma I is then indefinite and as far from singular as
+    a shift near target can make it."""
+    t = 2 - 2 * np.cos(np.arange(1, k + 1) * np.pi / (k + 1))
+    ev = np.sort((t[:, None] + t[None, :]).ravel())
+    i = int(np.searchsorted(ev, target))
+    return 0.5 * (ev[i - 1] + ev[i])
+
+
 def complex_values(A, seed):
     """A copy of A (sorted indices) whose values gain seeded standard-normal
     imaginary parts: the same pattern, complex128 values."""

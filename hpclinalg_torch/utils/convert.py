@@ -87,7 +87,8 @@ def from_reference(backend: Backend, ref=None, *, data=None, partition=None,
         if row_partition is None:
             raise ValueError("a dense matrix needs its row partition")
         data = np.asarray(data)
-        return DistDenseMatrix(backend.tensor(data), np.asarray(row_partition),
+        return DistDenseMatrix(backend.shard_tensor(data),
+                               np.asarray(row_partition),
                                data.shape[2], backend,
                                col_partition=col_partition)
     if data is not None:

@@ -38,6 +38,23 @@ def _mask_dev(partition: np.ndarray, L: int, backend: Backend) -> torch.Tensor:
                        lambda: backend.shard_tensor(shard_mask(partition, L)))
 
 
+def dist_norm(backend: Backend, data: torch.Tensor, p=2) -> torch.Tensor:
+    """The ``p``-norm of every entry of this process's shards ``data``
+    (padding zero): on a group this rank's partial (the sum of |x|^p, the
+    max or min for p = ±inf, the count for p = 0) all-reduced, then the
+    root."""
+    a = data.reshape(-1)
+    if not backend.is_dist:
+        return torch.linalg.vector_norm(a, ord=p)
+    if p in (np.inf, -np.inf):
+        return comm.all_reduce(backend, torch.linalg.vector_norm(a, ord=p),
+                               "max" if p > 0 else "min")
+    if p == 0:
+        return comm.all_reduce(backend, torch.linalg.vector_norm(a, ord=0))
+    part = comm.all_reduce(backend, torch.linalg.vector_norm(a, ord=p) ** p)
+    return part ** (1.0 / p)
+
+
 def _finite_scalar(o) -> bool:
     """True when scalar-multiplying by the host number ``o`` preserves zeros:
     a non-finite scalar writes 0*inf = NaN into the padding region."""
@@ -395,18 +412,7 @@ class DistVector:
             self.data.reshape(-1).to(dt), o.data.reshape(-1).to(dt)))
 
     def norm(self, p=2) -> torch.Tensor:
-        a = self.data.reshape(-1)
-        if not self.backend.is_dist:
-            return torch.linalg.vector_norm(a, ord=p)
-        if p in (np.inf, -np.inf):
-            return comm.all_reduce(self.backend, torch.linalg.vector_norm(
-                a, ord=p), "max" if p > 0 else "min")
-        if p == 0:
-            return comm.all_reduce(self.backend,
-                                   torch.linalg.vector_norm(a, ord=0))
-        part = comm.all_reduce(self.backend,
-                               torch.linalg.vector_norm(a, ord=p) ** p)
-        return part ** (1.0 / p)
+        return dist_norm(self.backend, self.data, p)
 
     def sum(self) -> torch.Tensor:
         return comm.all_reduce(self.backend, self.data.sum())

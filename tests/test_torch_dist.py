@@ -31,11 +31,12 @@ from hpclinalg_torch.tools.matrices import laplace2d
 torch.set_num_threads(1)
 
 DEADLINE_S = 120
-GUARDED = ("dense", "vector_getindex",
+GUARDED = ("dense_getindex", "dense_setindex", "dense_mapslices_rows",
+           "dense_cat", "vector_getindex",
            "vector_setindex", "sparse_getindex", "sparse_setindex", "cat",
            "blockdiag", "vcat_vectors", "hcat_vectors", "norm", "opnorm",
            "sum", "row_sum", "tr", "maximum", "minimum", "mean", "map_rows",
-           "device_ldlt", "device_lu", "device_backslash", "warmup")
+           "warmup")
 
 
 class World:
@@ -347,6 +348,9 @@ def test_dryrun_multichip(n):
     assert float(out["solve_residual_float64"]) < 1e-10
     assert float(out["complex_spmv_rel_err"]) < 1e-3
     assert float(out["complex_lu_residual"]) < 1e-5
+    assert float(out["device_ldlt_residual"]) < 1e-5
+    assert float(out["device_lu_residual"]) < 1e-5
+    assert bool(out["device_ldlt_local_subtrees"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
