@@ -116,8 +116,9 @@ hpclinalg_torch/csrc, then:
      cap // 16 slots, c64 at cap // 8 with 16-byte and one-entry loads);
      each kernel against its plain version (rtol 1e-12 in c128, 1e-5 in
      c64) and each product against scipy; the complex device solver:
-     ldlt(method="device", spd=False) on the Helmholtz operator at 512^2
-     (c128 at S = 1 and 4 against the host engine, c64 at S = 1), lu on a
+     ldlt(method="device", spd=False) on the Helmholtz operator at 256^2
+     (c128 at S = 1 and 4 against the host engine, c64 at S = 1; cut from
+     512^2 to make room for phase 14), lu on a
      permuted laplace2d(256) with unsymmetric complex values (K2 in its
      refinement) with its transposed solve, and a solver="device" backend
      through ht.solve twice; then times each complex kernel beside its
@@ -169,7 +170,20 @@ hpclinalg_torch/csrc, then:
      subtrees cover all four ranks; one JSON line an arrangement prints
      each rank's first call, engine factor (events and host enqueue
      time), solve, cross all_reduce (bytes, events, host time), At @ Y
-     and multi-RHS solve beside the stacked drive's.
+     and multi-RHS solve beside the stacked drive's;
+ 14. drives phase 10's saddle-point assembly with one shard a process
+     (tools/dist_checks.assembly: tools/kkt.drive at k = 1000, m = 10^4,
+     K 1,010,000 rows, in every rank; arrangements as in phase 12): cat,
+     K @ z, K.T @ w, K[0:n, 0:n] (K1), K[:, j], K[p, p], z[ids] = vals,
+     the vector cat, the Dirichlet rows K[bnd, bnd] = I, every sparse
+     reduction, the dense indexing and assignment, map_rows, mapslices,
+     blockdiag, to_backend, profile_trace of one K @ z into a file of the
+     rank's own, warmup; each step held against scipy in every rank. Each
+     rank's engines must equal phase 10's stacked ones at that S, it must
+     have launched K1, K2 and K2's gather mode, and its trace must name
+     kkt_matvec and K2's launch range; one JSON line an arrangement prints
+     each rank's first (plan build) and cached times and step seconds
+     beside phase 10's stacked S = 1 and S = 4 times.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -1146,7 +1160,8 @@ CPLX = ((torch.complex128, np.complex128), (torch.complex64, np.complex64))
 CPLX_RTOL = {torch.complex128: K2_RTOL[torch.float64],
              torch.complex64: K2_RTOL[torch.float32]}
 HELM_K = 1000          # Helmholtz(1000), n = 10^6: K1's complex instantiation
-HELM_DEV_K = 512       # Helmholtz(512), n = 262,144: the complex device LDL
+HELM_DEV_K = 256       # Helmholtz(256), n = 65,536: the complex device LDL
+                       # (512 until phase 14 needed its time: PERF.md 4)
 LU_K = 256             # the permuted laplace2d(256) of the complex device LU
 CAP_ROWS = 300_000     # rows of the at-the-cap matrices (random_cols)
 # residual bounds of the device solves: c128 as phase 9's, c64 as the JAX
@@ -1465,11 +1480,11 @@ def phase11_complex(ht, dev, R8, PL, N_sc, timer, card, times):
             Avals = allgather_full(A.nzval, nnzb, be)
             eps = 1e-10 * float(A.nzval.abs().max())
             # one factor: it takes seconds (the recursive LDL, PERF.md)
-            solver[f"ldl_262k_S{S}_{tag(dt)}"] = {
-                "first_ldlt_s": t_first,
-                "device_ldl_factor_262k_ms":
+            solver[f"ldl_S{S}_{tag(dt)}"] = {
+                "n": n5, "first_ldlt_s": t_first,
+                "device_ldl_factor_ms":
                     timed_ms(lambda: eng.factor(Avals, eps), 1),
-                "device_solve_262k_ms":
+                "device_solve_ms":
                     timed_ms(lambda: F.solve(b, refine=0), 5),
                 "residual": res}
             del F, eng, Avals
@@ -1484,11 +1499,11 @@ def phase11_complex(ht, dev, R8, PL, N_sc, timer, card, times):
         Avals = allgather_full(A.nzval, np.concatenate(
             [[0], np.cumsum(A.structure.nnz_local)]), be)
         eps = 1e-10 * float(A.nzval.abs().max())
-        solver["ldl_262k_S1_f64"] = {
-            "first_ldlt_s": t_first,
-            "device_ldl_factor_262k_ms":
+        solver["ldl_S1_f64"] = {
+            "n": n5, "first_ldlt_s": t_first,
+            "device_ldl_factor_ms":
                 timed_ms(lambda: eng.factor(Avals, eps), 1),
-            "device_solve_262k_ms": timed_ms(
+            "device_solve_ms": timed_ms(
                 lambda: F.solve(ht.DistVector.from_global(b5.real, be),
                                 refine=0), 5)}
         del F, eng, Avals
@@ -1914,9 +1929,108 @@ def phase13_solvers(ht, dev, card, times, mats):
     return launches
 
 
+# ---- phase 14: the saddle-point assembly, one shard a process ----------------
+
+DIST14_DEADLINE_S = 240  # each arrangement's spawn, inputs and drive
+KKT_SEED = 30            # phase 10's inputs (tools/kkt.main)
+# the drive's first (plan build) and cached times, printed per rank
+DIST14_TIMES = ("cat_first_s", "cat_cached_s", "matvec_first_s",
+                "matvec_cached_s", "rmatvec_first_s", "rmatvec_cached_s",
+                "getindex_first_s", "getindex_cached_s", "setindex_first_s",
+                "reductions_first_s", "blockdiag_first_s", "warmup_s")
+
+
+def phase14_assembly(card, times):
+    """Phase 10's saddle-point assembly with one shard a process, through
+    ``tools/dist_checks.assembly`` (``tools/kkt.drive`` at k = K, m =
+    KKT_M in every rank, each step held against scipy there: a failing
+    check fails its rank, and ``run_ranks`` raises): (a) NCCL at world 1;
+    (b) gloo at world DIST_WORLD, the ranks sharing cuda:0; (c) NCCL at
+    world = device count with two cards or more. No stacked drive runs
+    here: phase 10 drove the same inputs stacked at S = 1 and 4, and each
+    rank's engines are held to its record at that S. Each rank must have
+    launched K1, K2 and K2's gather mode (counted around its drive), and
+    its trace file must name ``kkt_matvec`` and K2's launch range. Prints
+    one JSON line an arrangement: each rank's first and cached times and
+    the drive's step seconds beside phase 10's stacked ones. Returns each
+    kernel's per-rank launches by arrangement."""
+    import os
+
+    from hpclinalg_torch.parallel.launch import run_ranks
+    from hpclinalg_torch.tools import dist_checks as dc
+    from hpclinalg_torch.tools.kkt import ENGINE_KERNELS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    p10 = times["phase10"]
+    count = torch.cuda.device_count()
+    arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
+    if count >= 2:
+        arrangements.append(("nccl", count))
+    else:
+        print("  (c) NCCL at world = device count: skipped: one card",
+              flush=True)
+    launches = {k: {} for k in dc.LAUNCH_COUNTERS}
+    for transport, world in arrangements:
+        what = f"{transport} world {world}"
+        key = f"{transport}_world{world}"
+        trace_dir = os.path.join(root, "build", "traces", f"kkt_{key}")
+        ranks, secs = timed_s(lambda: run_ranks(
+            "hpclinalg_torch.tools.dist_checks:on_rank", world,
+            backend=transport, device="cuda", deadline_s=DIST14_DEADLINE_S,
+            args=("assembly", {"k": K, "m": KKT_M, "seed": KKT_SEED,
+                               "trace_dir": trace_dir})))
+        ref = p10.get(f"S{world}")
+        for r, out in enumerate(ranks):
+            check(int(out["meta.nlocal"]) == 1 and not bool(out["meta.jax"]),
+                  f"{what} rank {r}: one shard, no JAX; every step of the "
+                  "drive held against scipy in the rank")
+            engines = {e: str(out[f"asm.{e}"])
+                       for e in ("engine", "k11_engine", "blockdiag_engine")}
+            if ref is not None:
+                check(all(engines[e] == ref[e] for e in engines),
+                      f"{what} rank {r}: engines {engines} equal phase 10's "
+                      f"stacked S={world}")
+            else:
+                print(f"  {what} rank {r}: engines {engines} (phase 10 has "
+                      f"no stacked S={world} record)", flush=True)
+            n = {k: int(out[f"asm.launches.{k}"]) for k in dc.LAUNCH_COUNTERS}
+            check(n["dia"] >= 1 and n["ell"] >= 1 and n["gather"] >= 1,
+                  f"{what} rank {r} launched K1, K2 and K2's gather mode: "
+                  f"{n}")
+            with open(os.path.join(trace_dir, f"trace.rank{r}.json")) as fh:
+                names = {e.get("name", "")
+                         for e in json.load(fh)["traceEvents"]}
+            # densify and segment launch no kernel of this repo: no name
+            kn = ENGINE_KERNELS.get(engines["engine"], "<no kernel>")
+            check("kkt_matvec" in names and any(kn in nm for nm in names),
+                  f"{what} rank {r}: its trace names kkt_matvec and "
+                  f"{kn!r} (K @ z on the {engines['engine']} engine)")
+        for k in dc.LAUNCH_COUNTERS:
+            launches[k][key] = [int(r[f"asm.launches.{k}"]) for r in ranks]
+        record = {"phase14": key, "card": card, "seconds": secs,
+                  **{t: [float(r[f"asm.time.{t}"]) for r in ranks]
+                     for t in DIST14_TIMES},
+                  **{f"stacked_S{S}_{t}": p10[f"S{S}"][t]
+                     for S in (1, 4) for t in DIST14_TIMES},
+                  "steps_s": {k[len("asm.step."):]: [
+                      float(r[k]) for r in ranks]
+                      for k in ranks[0] if k.startswith("asm.step.")},
+                  "stacked_steps_s": {f"S{S}": p10[f"S{S}"]["steps_s"]
+                                      for S in (1, 4)},
+                  "rank_secs": {k[len("asm.secs."):]: [
+                      float(r[k]) for r in ranks]
+                      for k in ranks[0] if k.startswith("asm.secs.")},
+                  "launches": {k: launches[k][key]
+                               for k in dc.LAUNCH_COUNTERS}}
+        times[f"phase14_{key}"] = record
+        print(json.dumps(record), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
+    t_start = time.perf_counter()
     import hpclinalg_torch as ht
     from hpclinalg_torch.ops import cuda_build, cuda_dia, cuda_ell
     from hpclinalg_torch.ops import cuda_dia_probe as k4
@@ -2350,6 +2464,14 @@ def main():
     print(f"phase 13 launches per rank: {sol_launches}; phase 13 took "
           f"{t13:.1f} s  [{card}]", flush=True)
 
+    # ---- phase 14: the saddle-point assembly, one shard a process ----------
+    print(f"phase 14: one shard a process, the saddle-point assembly of phase "
+          f"10 (K {K * K + KKT_M} rows) in every rank; NCCL world 1, gloo "
+          f"world {DIST_WORLD} on one card on {card}", flush=True)
+    kkt_dist, t14 = timed_s(lambda: phase14_assembly(card, times))
+    print(f"phase 14 launches per rank: {kkt_dist}; phase 14 took "
+          f"{t14:.1f} s  [{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -2372,6 +2494,7 @@ def main():
          "launches": launches["dia"],
          "device_solver_launches": launches9["dia"],
          "kkt_launches": launches10["dia"],
+         "kkt_dist_launches": kkt_dist["dia"],
          "dist_launches": dist_launches["dia"],
          "dist_solver_launches": sol_launches["dia"],
          "max_abs_err": errs["dia"],
@@ -2380,6 +2503,7 @@ def main():
          "source": "hpclinalg_torch/csrc/ell_spmv.cu",
          "replaces": "hpclinalg/ops/pallas_shuffle.py:321",
          "launches": launches["ell"], "kkt_launches": launches10["ell"],
+         "kkt_dist_launches": kkt_dist["ell"],
          "dist_launches": dist_launches["ell"],
          "dist_solver_launches": sol_launches["ell"],
          "max_abs_err": errs["ell"],
@@ -2390,6 +2514,7 @@ def main():
          "launches": launches["gather"],
          "device_solver_launches": launches9["gather"],
          "kkt_launches": launches10["gather"],
+         "kkt_dist_launches": kkt_dist["gather"],
          "dist_launches": dist_launches["gather"],
          "dist_solver_launches": sol_launches["gather"],
          "max_abs_err": errs["gather"],
@@ -2439,6 +2564,8 @@ def main():
             ("resident", "ell_resident_spmv complex (K3 in c64, c128)",
              "hpclinalg_torch/csrc/ell_resident_spmv.cu",
              "hpclinalg/ops/pallas_csr.py:123"))]}
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, the build "
+          f"included  [{card}]")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

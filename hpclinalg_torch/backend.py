@@ -106,13 +106,6 @@ class Backend:
         """Leading extent of every container's device tensor."""
         return len(self.shards)
 
-    def require_stacked(self, op: str) -> None:
-        """Raise for an operation that does not run on a process group
-        yet: it would compute on this process's shard alone."""
-        if self.is_dist:
-            raise NotImplementedError(
-                f"{op} on a process-group backend: ROADMAP queue 1")
-
     def shard_tensor(self, host_stack, dtype=None) -> torch.Tensor:
         """A host (S, ...) stack -> the tensor of this process's shards,
         rows ``shards`` of it, on the device (a copy, as ``tensor``)."""

@@ -6,7 +6,8 @@ from the blocks' replicated structures (``sparse_index.assemble``, the
 same structure and hash as the JAX package's), and each block scatters its
 values into the shared output through one cached ``ExchangePlan``. Every
 block is promoted to the common dtype before its scatter, so an f64 block
-never lands in an f32 output.
+never lands in an f32 output. On a process group every rank assembles the
+same structure and plans and scatters its own shard's values.
 """
 
 from __future__ import annotations
@@ -49,8 +50,6 @@ def _assemble_blocks(backend, placed):
 
 
 def _run_blocks(backend, key, placed):
-    backend.require_stacked("cat and blockdiag of sparse blocks "
-                            "(ops/blocks.py)")
     from ..sparse import DistSparseMatrix
 
     st, plans = cached_plan("blocks_plan", key,
@@ -136,12 +135,11 @@ def cat_dense(*blocks, dims=1):
 
     grid, row_off, col_off = _grid_offsets(blocks, dims)
     backend = grid[0][0].backend
-    backend.require_stacked("cat of dense blocks (ops/blocks.py)")
     S = backend.nshards
     M, N = row_off[-1], col_off[-1]
     rp2 = uniform_partition(M, S)
     dtype = _common_dtype(blocks)
-    out = torch.zeros((S, padded_size(rp2), N), dtype=dtype,
+    out = torch.zeros((backend.nlocal, padded_size(rp2), N), dtype=dtype,
                       device=backend.device)
     p2h = partition_hash(rp2)
     for i, brow in enumerate(grid):
@@ -171,7 +169,6 @@ def hcat_dense(*blocks):
 def vcat_vectors(*vs):
     """Concatenate distributed vectors (ref: vcat for HPCVector,
     blocks.jl:304-445): one cached scatter ExchangePlan per input."""
-    vs[0].backend.require_stacked("vcat of vectors (ops/blocks.py)")
     from ..hashing import partition_hash
     from ..vector import DistVector
     from .gather import scatter_exchange_plan
@@ -198,7 +195,6 @@ def vcat_vectors(*vs):
 def hcat_vectors(*vs):
     """Vectors side by side as the columns of a dense matrix (ref: hcat for
     HPCVector, blocks.jl:304-445), each aligned to the first's partition."""
-    vs[0].backend.require_stacked("hcat of vectors (ops/blocks.py)")
     from ..dense import DistDenseMatrix
 
     v0 = vs[0]

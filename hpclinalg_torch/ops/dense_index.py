@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..cache import cached_plan
+from ..parallel import comm
 from ..partition import padded_size, uniform_partition
 from .gather import gather_exchange_plan
 from .indexing import _split, check_ids_bounds, key_ids, subrange_partition
@@ -36,8 +37,6 @@ def dense_getindex(A, key):
     from ..parallel.mesh import scatter_from_full
     from ..vector import DistVector
 
-    A.backend.require_stacked("DistDenseMatrix indexing "
-                              "(ops/dense_index.py)")
     if not isinstance(key, tuple) or len(key) != 2:
         raise TypeError("matrix indexing requires A[rows, cols]")
     rkey, ckey = key
@@ -49,7 +48,8 @@ def dense_getindex(A, key):
             ckey, (int, np.integer)):
         check_ids_bounds(np.array([int(rkey)]), m, "row")
         R = dense_getindex(A, (slice(int(rkey), int(rkey) + 1), ckey))
-        full = R.data.sum(dim=(0, 1))   # (ncols,); one valid row
+        # (ncols,): the one valid row, which on a group lives in one rank
+        full = comm.all_reduce(backend, R.data.sum(dim=(0, 1)))
         rp = uniform_partition(R.ncols, backend.nshards)
         return DistVector(scatter_from_full(full, rp, backend), rp, backend)
 

@@ -5,7 +5,9 @@ getindex, fancy getindex with host or distributed integer index vectors,
 and setindex. Scalar indexing is rejected (TypeError), as in the JAX
 package and the reference (indexing.jl:17-21): it would synchronise the
 device once per element. Every movement is one cached ``ExchangePlan``
-(K2's gather mode on the card).
+(K2's gather mode on the card), built from global host data in every rank
+of a process group; a distributed id vector is gathered to the host first,
+a collective every rank calls.
 """
 
 from __future__ import annotations
@@ -102,7 +104,6 @@ def dedup_last(ids: np.ndarray):
 def vector_getindex(v, key):
     """v[key] as a DistVector: for a slice on the subrange's partition, for
     a distributed id vector on its partition, else on the uniform one."""
-    v.backend.require_stacked("DistVector indexing (ops/indexing.py)")
     from ..vector import DistVector
 
     backend = v.backend
@@ -125,7 +126,6 @@ def vector_setindex(v, key, value) -> None:
     """``v[key] = value`` (ref: indexing.jl:1871-...). The vector's tensor
     is swapped for the fresh one the exchange returns: a tensor that
     another container may share is never written."""
-    v.backend.require_stacked("DistVector index assignment (ops/indexing.py)")
     from ..backend import numpy_dtype
     from ..vector import DistVector
 

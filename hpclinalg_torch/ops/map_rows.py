@@ -3,8 +3,9 @@
 Port of the JAX package's ``hpclinalg/ops/map_rows.py`` (ref: map_rows,
 HPCLinearAlgebra.jl:1017-1249): every argument is repartitioned to the
 first argument's partition, then ``fn`` runs on each row through
-``torch.func.vmap`` twice over the stacked (S, L, ...) data. ``fn`` takes
-and returns torch tensors.
+``torch.func.vmap`` twice over this process's (nlocal, L, ...) data: all
+S shards stacked, or its own on a process group, where the repartition is
+an exchange. ``fn`` takes and returns torch tensors.
 
 vertex_indices (ref HPCLinearAlgebra.jl:1286) is the global row index
 vector of a partition, 0-based.
@@ -31,7 +32,6 @@ def map_rows(fn, *args, out_dtype=None):
     if not isinstance(v0, (DistVector, DistDenseMatrix)):
         raise TypeError(f"map_rows argument of type {type(v0)}")
     backend = v0.backend
-    backend.require_stacked("map_rows (ops/map_rows.py)")
     part = v0.partition if isinstance(v0, DistVector) else v0.row_partition
     datas = []
     for a in args:

@@ -5,10 +5,16 @@ local segment sum over each stored value's row; column sums reduce into
 each shard's compressed column space and then scatter-add to the column
 owners through one cached ``ExchangePlan`` (``apply(..., add=True)``).
 
-Both segment sums are one ``index_add_`` on the flattened stack. The
-padding slots of ``nzval`` (zero by the padding invariant) go to slots of
-their own past the end of the output, one each, so no two of them collide
-on one address and none lands on another shard's first row.
+Both segment sums are one ``index_add_`` on this process's flattened
+shards (all S stacked, or its own on a process group). The padding slots
+of ``nzval`` (zero by the padding invariant) go to slots of their own past
+the end of the output, one each, so no two of them collide on one address
+and none lands on a real row.
+
+The scalars (``norm`` and the sum behind ``mean``, ``maximum``,
+``minimum``) reduce this process's values and, on a group, all-reduce the
+partial result, as the JAX package's psum/pmax/pmin do: a 0-d tensor, the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -17,14 +23,18 @@ import numpy as np
 import torch
 
 from ..cache import cached_plan
+from ..parallel import comm
 
 
 def _segment_index(st, ids: np.ndarray, width: int) -> torch.Tensor:
-    """(S*NNZpad,) int64 destinations in a flat (S*width + npad) buffer:
-    stored value k of shard s goes to s*width + ids[s, k], each padding
-    slot to a slot of its own past S*width."""
+    """(nlocal*NNZpad,) int64 destinations in a flat (nlocal*width + npad)
+    buffer: stored value k of this process's j-th shard s goes to
+    j*width + ids[s, k], each padding slot to a slot of its own past
+    nlocal*width."""
+    sh = st.backend.shards
+    ids = ids[sh.start: sh.stop]
     S, P = ids.shape
-    valid = np.arange(P)[None, :] < st.nnz_local[:, None]
+    valid = np.arange(P)[None, :] < st.nnz_local[sh.start: sh.stop, None]
     dst = np.arange(S, dtype=np.int64)[:, None] * width + ids.astype(np.int64)
     dst[~valid] = S * width + np.arange(int((~valid).sum()), dtype=np.int64)
     return st.backend.tensor(dst.reshape(-1))
@@ -33,7 +43,9 @@ def _segment_index(st, ids: np.ndarray, width: int) -> torch.Tensor:
 def _segment_sum(st, vals: torch.Tensor, dst: torch.Tensor,
                  width: int) -> torch.Tensor:
     S = vals.shape[0]
-    out = vals.new_zeros(S * width + dst.numel() - st.nnz)
+    sh = st.backend.shards
+    nnz = int(st.nnz_local[sh.start: sh.stop].sum())
+    out = vals.new_zeros(S * width + dst.numel() - nnz)
     out.index_add_(0, dst, vals.reshape(-1))
     return out[: S * width].reshape(S, width)
 
@@ -105,22 +117,44 @@ def _full(A) -> bool:
     return A.nnz() == A.m * A.ncols
 
 
+def norm(A, p=2):
+    """The elementwise p-norm of the stored values (Frobenius for p = 2):
+    on a group the sum of |a|^p over the ranks, then the root (the max for
+    p = inf)."""
+    be = A.backend
+    a = torch.abs(A.nzval)
+    if p == np.inf:
+        return comm.all_reduce(be, torch.max(a), "max")
+    if p == 2:
+        return torch.sqrt(comm.all_reduce(be, torch.sum(a ** 2)))
+    if p == 1:
+        return comm.all_reduce(be, torch.sum(a))
+    return comm.all_reduce(be, torch.sum(a ** p)) ** (1.0 / p)
+
+
+def total(A):
+    """The sum of all stored values."""
+    return comm.all_reduce(A.backend, torch.sum(A.nzval))
+
+
 def maximum(A):
     """The largest entry, the implicit zeros counted when the matrix is not
     full (a full matrix of negative entries does not report 0)."""
-    stored = torch.where(A.structure.nnz_mask_dev, A.nzval,
-                         torch.tensor(-np.inf, dtype=A.dtype,
-                                      device=A.nzval.device)).max()
+    stored = comm.all_reduce(A.backend, torch.where(
+        A.structure.nnz_mask_dev, A.nzval,
+        torch.tensor(-np.inf, dtype=A.dtype, device=A.nzval.device)).max(),
+        "max")
     return stored if _full(A) else torch.maximum(stored, stored.new_zeros(()))
 
 
 def minimum(A):
-    stored = torch.where(A.structure.nnz_mask_dev, A.nzval,
-                         torch.tensor(np.inf, dtype=A.dtype,
-                                      device=A.nzval.device)).min()
+    stored = comm.all_reduce(A.backend, torch.where(
+        A.structure.nnz_mask_dev, A.nzval,
+        torch.tensor(np.inf, dtype=A.dtype, device=A.nzval.device)).min(),
+        "min")
     return stored if _full(A) else torch.minimum(stored, stored.new_zeros(()))
 
 
 def mean(A):
     """The mean over all m*n entries, the implicit zeros counted."""
-    return A.nzval.sum() / (A.m * A.ncols)
+    return total(A) / (A.m * A.ncols)

@@ -7,18 +7,20 @@ setindex! methods, indexing.jl:1871-4362).
 rows: the (rows x cols) block's old entries are dropped, the value's
 pattern inserted, and the surviving values move to their new slots through
 one cached local ``ExchangePlan`` onto a base that holds the inserted
-values. The matrix swaps in the new structure and values and drops every
-cache the old ones fed: its transpose (and the transpose's link back), the
-symmetry flag and the per-instance SpMV value tables. The SpMV, transpose
-and backslash caches are keyed by the structural hash, so a new pattern
-gets new plans; a value-only assignment keeps the hash and the backslash
-cache refactorizes (it keys values by the identity of ``nzval``).
+values (a host value's written in place; a DistSparseMatrix value's moved
+there by a second cached plan, across ranks on a process group). The
+matrix swaps in the new structure and values and drops every cache the old
+ones fed: its transpose (and the transpose's link back), the symmetry flag
+and the per-instance SpMV value tables. The SpMV, transpose and backslash
+caches are keyed by the structural hash, so a new pattern gets new plans;
+a value-only assignment keeps the hash and the backslash cache
+refactorizes (it keys values by the identity of ``nzval``).
 
-*Dense*: one flat list of exactly the assigned slots of the (S*L*n) stack,
-checked on the host, and one ``index_copy`` into a copy of the stack. The
-JAX package pads its table with an out-of-range slot and scatters with
-mode="drop"; on the card an index out of range is a device-side assert, so
-nothing here ever points outside the stack.
+*Dense*: one flat list of exactly the assigned slots of this process's
+(nlocal*L*n) stack, checked on the host, and one ``index_copy`` into a
+copy of the stack. The JAX package pads its table with an out-of-range
+slot and scatters with mode="drop"; on the card an index out of range is a
+device-side assert, so nothing here ever points outside the stack.
 """
 
 from __future__ import annotations
@@ -62,8 +64,11 @@ def _ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
 
 def _sparse_insert_plan(A, rids, cids, V_indptr, V_indices):
     """The new structure, the ExchangePlan moving the surviving old values
-    to their new slots, and (flat slots, V.data positions) of the inserted
-    values: ``base.flat[ins_dst] = V.data[ins_src]`` before the moves."""
+    to their new slots, per shard (new slots, V.data positions) of the
+    inserted values (global host data, the same in every rank), and the
+    inserted values this process's shards hold as (flat slots of its
+    (nlocal, out_pad) values, V.data positions):
+    ``base.flat[ins_dst] = V.data[ins_src]`` before the moves."""
     from ..sparse import SparseStructure, compress_cols
 
     st = A.structure
@@ -134,18 +139,39 @@ def _sparse_insert_plan(A, rids, cids, V_indptr, V_indices):
     for s in range(S):
         send[s][s], recv[s][s] = out[s][0], out[s][1]
     plan = ExchangePlan(A.backend, send, recv, st2.NNZpad)
-    ins_dst = np.concatenate([s * st2.NNZpad + out[s][2] for s in range(S)])
-    ins_src = np.concatenate([out[s][3] for s in range(S)])
-    return st2, plan, A.backend.tensor(ins_dst), ins_src
+    sh = A.backend.shards
+    ins_dst = np.concatenate([j * plan.out_pad + out[s][2]
+                              for j, s in enumerate(sh)])
+    ins_src = np.concatenate([out[s][3] for s in sh])
+    return (st2, plan, [(o[2], o[3]) for o in out],
+            A.backend.tensor(ins_dst), ins_src)
+
+
+def _value_plan(A, value, ins, slots, out_pad):
+    """The ExchangePlan moving each inserted entry of the DistSparseMatrix
+    ``value`` from its slot on its shard of ``value`` (``slots``: V.data,
+    each entry's flat slot in the value's (S, NNZpad) stack plus one) to
+    its new slot on A's shard; on a group each crosses from the rank that
+    owns it in the value's partition."""
+    S = A.backend.nshards
+    P = value.structure.NNZpad
+    send = [[np.zeros(0, np.int64) for _ in range(S)] for _ in range(S)]
+    recv = [[np.zeros(0, np.int64) for _ in range(S)] for _ in range(S)]
+    for d in range(S):
+        owner, slot = np.divmod(slots[ins[d][1]] - 1, P)
+        for s in range(S):
+            m = owner == s
+            if m.any():
+                send[s][d], recv[d][s] = slot[m], ins[d][0][m]
+    return ExchangePlan(A.backend, send, recv, out_pad)
 
 
 def sparse_setindex(A, key, value) -> None:
     """A[rows, cols] = value; ``value`` is a scalar, an array of shape
     (len(rows), len(cols)), a scipy sparse matrix or a DistSparseMatrix
-    (whose values move device to device). Repeated ids keep their last
+    (whose values move device to device, through one cached ExchangePlan
+    from the ranks that hold them on a group). Repeated ids keep their last
     write. The full matrix is never gathered."""
-    A.backend.require_stacked("DistSparseMatrix index assignment "
-                              "(ops/setindex.py)")
     from ..sparse import DistSparseMatrix
 
     rids, cids = _keys(A, key)
@@ -180,22 +206,25 @@ def sparse_setindex(A, key, value) -> None:
 
     Vip = V.indptr.astype(np.int64)
     Vix = V.indices.astype(np.int64)
-    st2, plan, ins_dst, ins_src = cached_plan(
-        "sparse_setindex",
-        (A.hash, _h(rids), _h(cids), _h(Vip, Vix), A.backend.key),
+    key = (A.hash, _h(rids), _h(cids), _h(Vip, Vix), A.backend.key)
+    st2, plan, ins, ins_dst, ins_src = cached_plan(
+        "sparse_setindex", key,
         lambda: _sparse_insert_plan(A, rids, cids, Vip, Vix))
 
-    S = A.backend.nshards
-    base = A.nzval.new_zeros(S * plan.out_pad)
-    if len(ins_src):
-        if on_device:
-            vals = value.nzval.reshape(-1).index_select(
-                0, A.backend.tensor(V.data[ins_src] - 1)).to(A.dtype)
-        else:
-            vals = A.backend.tensor(V.data[ins_src].astype(
-                numpy_dtype(A.dtype)))
-        base.index_copy_(0, ins_dst, vals)
-    nz2 = plan.apply(A.nzval, base=base.reshape(S, plan.out_pad))
+    if on_device:
+        # the plan holds the value's slots, so its key holds them too
+        vplan = cached_plan(
+            "sparse_setindex_value", key + (value.hash, _h(V.data)),
+            lambda: _value_plan(A, value, ins, V.data, plan.out_pad))
+        base = vplan.apply(value.nzval.to(A.dtype))
+    else:
+        S = A.backend.nlocal
+        base = A.nzval.new_zeros(S * plan.out_pad)
+        if len(ins_src):
+            base.index_copy_(0, ins_dst, A.backend.tensor(
+                V.data[ins_src].astype(numpy_dtype(A.dtype))))
+        base = base.reshape(S, plan.out_pad)
+    nz2 = plan.apply(A.nzval, base=base)
     _replace_sparse(A, st2, nz2)
 
 
@@ -215,9 +244,8 @@ def dense_setindex(M, key, value) -> None:
     """M[rows, cols] = value; ``value`` is a scalar, an array or a
     DistDenseMatrix of shape (len(rows), len(cols)). Repeated ids keep
     their last write. The matrix stays on its device; its tensor is swapped
-    for an updated copy."""
-    M.backend.require_stacked("DistDenseMatrix index assignment "
-                              "(ops/setindex.py)")
+    for an updated copy. On a group each rank writes the assigned rows it
+    owns."""
     from ..dense import DistDenseMatrix
     from ..parallel.mesh import allgather_full
 
@@ -246,14 +274,22 @@ def dense_setindex(M, key, value) -> None:
     S, L, n = M.data.shape
 
     def build():
+        """The flat slots of the assigned rows this process holds and, when
+        it holds only some of them, their positions in ``vals``."""
         owners, loc = global_to_local(M.row_partition, rids)
-        dst = ((owners * L + loc)[:, None] * n + cids[None, :]).reshape(-1)
+        sh = backend.shards
+        mine = np.flatnonzero((owners >= sh.start) & (owners < sh.stop))
+        dst = (((owners[mine] - sh.start) * L + loc[mine])[:, None] * n
+               + cids[None, :]).reshape(-1)
         if len(dst) and (dst.min() < 0 or dst.max() >= S * L * n):
             raise IndexError("dense setindex slot outside the stack")
-        return backend.tensor(dst.astype(np.int64))
+        rows = None if len(mine) == len(rids) else backend.tensor(mine)
+        return backend.tensor(dst.astype(np.int64)), rows
 
-    dst = cached_plan(
+    dst, rows = cached_plan(
         "dense_setindex",
         (M.row_partition_hash, n, L, _h(rids), _h(cids), backend.key), build)
+    if rows is not None:
+        vals = vals.index_select(0, rows)
     M.data = M.data.reshape(-1).index_copy(
         0, dst, vals.reshape(-1).to(M.dtype)).reshape(S, L, n)

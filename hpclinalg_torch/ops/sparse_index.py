@@ -123,8 +123,6 @@ def _build(A, rids, rtag, cids, ctag):
 
 
 def sparse_getindex(A, key):
-    A.backend.require_stacked("DistSparseMatrix indexing "
-                              "(ops/sparse_index.py)")
     from ..sparse import DistSparseMatrix
     from .reductions import col_sum, row_sum
 

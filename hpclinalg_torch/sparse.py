@@ -503,23 +503,18 @@ class DistSparseMatrix:
         return sparse_repartition.repartition_sparse(self, new_row_partition)
 
     # -- reductions (ref sparse.jl:2172-2244, 2586-2723) -------------------------
+    # On a group each all-reduces this process's partial result
+    # (ops/reductions.py): a 0-d tensor or a DistVector, as stacked.
     def norm(self, p=2):
         """Elementwise norm of the stored values (Frobenius for p = 2)."""
-        self.backend.require_stacked("DistSparseMatrix.norm")
-        a = torch.abs(self.nzval)
-        if p == 2:
-            return torch.sqrt(torch.sum(a ** 2))
-        if p == 1:
-            return torch.sum(a)
-        if p == np.inf:
-            return torch.max(a)
-        return torch.sum(a ** p) ** (1.0 / p)
+        from .ops import reductions
+
+        return reductions.norm(self, p)
 
     def opnorm(self, p=np.inf):
         """Induced 1- and inf-norms: the largest absolute column or row sum."""
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.opnorm")
         if p == np.inf:
             return reductions.row_abs_sum(self).max()
         if p == 1:
@@ -531,9 +526,8 @@ class DistSparseMatrix:
         the row partition) or column sums (axis=0, on the column partition)."""
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.sum")
         if axis is None:
-            return torch.sum(self.nzval)
+            return reductions.total(self)
         if axis == 1:
             return reductions.row_sum(self)
         if axis == 0:
@@ -543,27 +537,23 @@ class DistSparseMatrix:
     def tr(self):
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.tr")
         return reductions.trace(self)
 
     def maximum(self):
         """The largest entry, the implicit zeros counted (ref sparse.jl:2650)."""
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.maximum")
         return reductions.maximum(self)
 
     def minimum(self):
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.minimum")
         return reductions.minimum(self)
 
     def mean(self):
         """The mean over all m*n entries (ref sparse.jl:2678)."""
         from .ops import reductions
 
-        self.backend.require_stacked("DistSparseMatrix.mean")
         return reductions.mean(self)
 
     # -- indexing (ref indexing.jl) ----------------------------------------------

@@ -1,6 +1,6 @@
 """Per-rank bodies of the distributed checks, run on every rank of a process
 group by ``tests/test_torch_dist*.py`` (gloo, CPU) and ``chip_smoke.py``
-phases 12 and 13 (NCCL or gloo on the card):
+phases 12, 13 and 14 (NCCL or gloo on the card):
 
     from hpclinalg_torch.parallel.launch import run_ranks
     ranks = run_ranks("hpclinalg_torch.tools.dist_checks:on_rank", 4,
@@ -638,7 +638,7 @@ def chol_failure(be, k: int = 10) -> dict:
     return {"chol_failure.raised": np.asarray(0)}
 
 
-# -- utilities, guards, the process --------------------------------------------------
+# -- utilities -----------------------------------------------------------------
 
 def utilities(be, n: int = 37, k: int = 5, seed: int = 6) -> dict:
     """comm_size, comm_rank, io0, to_backend both ways between the group
@@ -682,60 +682,241 @@ def utilities(be, n: int = 37, k: int = 5, seed: int = 6) -> dict:
     return {f"util.{k}": _np(v) for k, v in out.items()}
 
 
-def guarded_ops(be) -> dict:
-    """name -> a call of an operation this slice does not run on a process
-    group; each must raise NotImplementedError there."""
+# -- indexing, assignment, blocks, reductions, map_rows, the KKT assembly ------
+
+def assembly_inputs(S: int, n: int = 37, seed: int = 9) -> dict:
+    """The host inputs of ``assembly_cases``, for the JAX package too: ``R``
+    n x (n - 3) random on ``p`` (a partition with an empty shard) and its
+    grid neighbours for ``cat``, ``L`` = laplace2d(6), vectors ``x`` (on
+    ``p``) and ``y`` (on ``pu``, uniform), ``D`` n x 4, index lists with
+    repeats and the values assigned, each on a partition of its own."""
+    from ..partition import uniform_partition
+
+    rng = np.random.default_rng(seed)
+
+    def rand(m, k, density):
+        M = sp.random(m, k, density=density, format="csr", random_state=rng)
+        M.data = rng.standard_normal(M.nnz)
+        return M
+
+    ids = rng.integers(0, n, 12)
+    ids[-3:] = ids[:3]                          # repeated ids
+    srows = np.array([4, 30, 11, 33, 0])
+    pu = uniform_partition(n, S)
+    return {"p": empty_shard_partition(n, S), "pu": pu,
+            "R": rand(n, n - 3, 0.15), "B12": rand(n, 5, 0.3),
+            "B21": rand(6, n - 3, 0.3), "B22": rand(6, 5, 0.5),
+            "p6": uniform_partition(6, S), "L": laplace2d(6),
+            "x": rng.standard_normal(n), "y": rng.standard_normal(n),
+            "ids": ids, "pi": uniform_partition(len(ids), S),
+            "vals": rng.standard_normal(len(ids)),
+            "cids": np.array([3, 20, 3, 0, 33]),
+            "srows": srows, "scols": np.array([2, 9, 17, 25, 30, 31]),
+            "Vs": rand(len(srows), 6, 0.5), "pv": uniform_partition(5, S),
+            "Vr": sp.csr_matrix(np.array([[1.0, 0.0, 2.0], [0.0, 3.0, 0.0],
+                                          [4.0, 5.0, 0.0]])),
+            "pr": uniform_partition(3, S),
+            # the last row of the last shard: on the last rank, not rank 0
+            "krow": int(pu[-2]), "D": rng.standard_normal((n, 4)),
+            "drows": np.array([36, 2, 19, 2, 28]),
+            "Dv": rng.standard_normal((5, 2)), "Dh": rng.standard_normal(
+                (len(ids), 2))}
+
+
+def _arrays(name: str, obj) -> dict:
+    """A result of ``assembly_cases`` as numpy arrays: a sparse matrix's
+    values (``.local``, this process's rows) and hash, a vector's or a
+    dense matrix's rows and the whole (``.full``), a scalar's value, and 0
+    for None (a call that returns nothing)."""
+    if obj is None:
+        return {name: np.asarray(0)}
+    if hasattr(obj, "nzval"):
+        return {f"{name}.local": _np(obj.nzval),
+                f"{name}.hash": np.asarray(obj.hash)}
+    if hasattr(obj, "row_partition") or hasattr(obj, "partition"):
+        return {f"{name}.local": _np(obj.data),
+                f"{name}.full": _np(obj.to_numpy())}
+    return {name: _np(obj)}
+
+
+KKT_SMALL = (12, 30, 5)   # k, m, seed of the KKT assembly in the CPU tests
+
+
+def assembly_cases(api, be, inp: dict, stack) -> dict:
+    """Indexing, assignment, blocks, every sparse reduction and ``map_rows``
+    through ``api`` (``hpclinalg_torch``, or a package with the same API:
+    the CPU tests pass the JAX package with its backend) on backend ``be``
+    and ``assembly_inputs``, then ``warmup`` and the KKT assembly's
+    ``cat``, submatrices and Dirichlet rows at ``KKT_SMALL``; ``stack``
+    stacks ``api``'s 0-d arrays into a row. Returns each result as
+    ``_arrays`` gives it, taken as soon as it is made (the assignments
+    change their matrix in place)."""
+    from .kkt import Inputs
+
+    p, pu = inp["p"], inp["pu"]
+    ids, vals, srows, scols = (inp["ids"], inp["vals"], inp["srows"],
+                               inp["scols"])
+    n = len(inp["x"])
+    out = {}
+
+    def put(name, obj):
+        out.update(_arrays(name, obj))
+
+    def vec(a, part=p):
+        return api.DistVector.from_global(a, be, partition=part)
+
+    def sparse(M, part=p):
+        return api.DistSparseMatrix.from_scipy(M, be, row_partition=part)
+
+    def dense(M, part=p):
+        return api.DistDenseMatrix.from_global(M, be, row_partition=part)
+
+    x, y, R = vec(inp["x"]), vec(inp["y"], pu), sparse(inp["R"])
+    # vector getindex and setindex
+    put("vget_slice", x[3:30])
+    put("vget_step", x[1:35:3])
+    put("vget_ids", x[ids])
+    put("vget_vec", x[vec(ids.astype(np.float64), inp["pi"])])
+
+    def vset(name, key, value):
+        v = vec(inp["x"])
+        v[key] = value
+        put(name, v)
+
+    uniq = np.unique(ids)
+    vset("vset_scalar", slice(2, 20), 1.5)
+    vset("vset_host", uniq, vals[: len(uniq)])
+    vset("vset_vec", slice(5, 15), y[20:30])
+    vset("vset_repeats", ids, vals)
+    # sparse getindex: slices, ids, DistVector ids, a column, a row
+    put("sget_slice", R[3:30, 2:25])
+    put("sget_step", R[1:35:2, ::3])
+    put("sget_ids", R[ids, inp["cids"]])
+    put("sget_vec", R[vec(ids.astype(np.float64), inp["pi"]), 0:20])
+    put("sget_col", R[:, 7])
+    put("sget_col_ids", R[ids, 4])
+    put("sget_row", R[inp["krow"], :])
+
+    def sset(name, key, value):
+        A = sparse(inp["R"])
+        A[key] = value
+        put(name, A)
+
+    sset("sset_scalar", (slice(2, 6), slice(3, 9)), 2.0)
+    sset("sset_scipy", (srows, scols), inp["Vs"])
+    # the value's entries live on other ranks than the rows they land in
+    sset("sset_dist", (srows, scols), sparse(inp["Vs"], inp["pv"]))
+    sset("sset_dist_repeats", ([7, 1, 7], [4, 9, 4]),
+         sparse(inp["Vr"], inp["pr"]))
+    sset("sset_repeats", ([1, 30, 1], [2, 5, 2]),
+         np.arange(1.0, 10.0).reshape(3, 3))
+    k = inp["krow"]
+    sset("sset_grow", (slice(k, k + 1), slice(0, n - 3)),
+         np.ones((1, n - 3)))          # a row grown to the full width
+    # dense getindex and setindex
+    D, Du = dense(inp["D"]), dense(inp["D"], pu)
+    put("dget_row", Du[k, 1:4])
+    put("dget_rows", D[ids, 1:3])
+    put("dget_col", D[ids, 2])
+
+    def dset(name, key, value):
+        E = dense(inp["D"])
+        E[key] = value
+        put(name, E)
+
+    dset("dset_dist", (inp["drows"], slice(0, 2)),
+         dense(inp["Dv"], inp["pv"]))
+    dset("dset_host", (ids, [0, 3]), inp["Dh"])
+    # blocks
+    put("cat22", api.cat(R, sparse(inp["B12"]), sparse(inp["B21"], inp["p6"]),
+                         sparse(inp["B22"], inp["p6"]), dims=(2, 2)))
+    Lm = sparse(inp["L"], None)
+    put("blockdiag", api.blockdiag(R[0:36, :], Lm))
+    put("dcat_v", api.vcat_dense(D, Du[0:5, :]))
+    put("dcat_h", api.hcat_dense(D, Du))
+    put("vcat_vectors", api.vcat_vectors(x, y))
+    put("hcat_vectors", api.hcat_vectors(x, y))
+    # every sparse reduction
+    for name, fn in (("norm2", lambda: R.norm()), ("norm1", lambda: R.norm(1)),
+                     ("norminf", lambda: R.norm(np.inf)),
+                     ("norm3", lambda: R.norm(3)),
+                     ("opnorm1", lambda: R.opnorm(1)),
+                     ("opnorminf", lambda: R.opnorm(np.inf)),
+                     ("sum", lambda: R.sum()), ("sum0", lambda: R.sum(axis=0)),
+                     ("sum1", lambda: R.sum(axis=1)), ("tr", lambda: Lm.tr()),
+                     ("maximum", lambda: R.maximum()),
+                     ("minimum", lambda: R.minimum()),
+                     ("mean", lambda: R.mean())):
+        put(name, fn())
+    # map_rows over arguments on different partitions, mapslices over rows
+    put("map_vec_dense", api.map_rows(lambda a, r: a * r.sum(), x, Du))
+    put("map_row", api.map_rows(lambda r: stack([r[0] - r[1], 2 * r[2]]), D))
+    put("mapslices_rows", D.mapslices(lambda r: stack([r.sum(), r[3]]),
+                                      axis=1))
+    put("map_vertex", api.map_rows(lambda i: 2 * i + 1,
+                                   api.vertex_indices(pu, be)))
+    put("warmup", api.warmup(be))
+    # the KKT assembly at KKT_SMALL: cat, submatrices, the Dirichlet rows
+    I = Inputs(*KKT_SMALL)
+    nk = I.n
+    K = api.cat(*[api.DistSparseMatrix.from_scipy(M, be)
+                  for M in (I.A, I.Bt, I.B, I.C)], dims=(2, 2))
+    put("kkt_K", K)
+    put("kkt_K11", K[0:nk, 0:nk])
+    put("kkt_Kp", K[I.p, I.p])
+    put("kkt_Kn", K[nk:, :])
+    put("kkt_Kj", K[:, I.j])
+    K[I.bnd, I.bnd] = sp.eye(len(I.bnd))
+    put("kkt_edit", K)
+    put("kkt_edit_opnorm1", K.opnorm(1))
+    return out
+
+
+def assembly_checks(be, trace_dir: str | None = None) -> dict:
+    """The body of ``tests/test_torch_dist_assembly.py``: ``assembly_cases``
+    through this package, then ``tools/kkt.drive`` at ``KKT_SMALL``, every
+    step held against scipy by the drive in this process (a failing check
+    raises), its one traced ``K @ z`` written to ``trace_dir``."""
+    import hpclinalg_torch as ht
+    from . import kkt
+
+    out = assembly_cases(ht, be, assembly_inputs(be.nshards), torch.stack)
+    res = kkt.drive(be, kkt.Inputs(*KKT_SMALL), trace_dir=trace_dir)
+    for key in ("engine", "k11_engine", "blockdiag_engine"):
+        out[f"drive.{key}"] = np.asarray(res[key])
+    return {f"asm.{k}": v for k, v in out.items()}
+
+
+# the operations of indexing, assignment, blocks, the sparse reductions,
+# map_rows and warmup, each with the case of ``assembly_cases`` that runs it
+GROUP_OPS = {"dense_getindex": "dget_rows", "dense_setindex": "dset_host",
+             "dense_mapslices_rows": "mapslices_rows", "dense_cat": "dcat_v",
+             "vector_getindex": "vget_step", "vector_setindex": "vset_repeats",
+             "sparse_getindex": "sget_slice", "sparse_setindex": "sset_scalar",
+             "cat": "cat22", "blockdiag": "blockdiag",
+             "vcat_vectors": "vcat_vectors", "hcat_vectors": "hcat_vectors",
+             "norm": "norm2", "opnorm": "opnorminf", "sum": "sum",
+             "row_sum": "sum1", "tr": "tr", "maximum": "maximum",
+             "minimum": "minimum", "mean": "mean",
+             "map_rows": "map_vec_dense", "warmup": "warmup"}
+
+
+def group_ops(be) -> dict:
+    """Each operation of ``GROUP_OPS`` as its case of ``assembly_cases``
+    runs it: this process's rows of a container result (``grp.<op>.local``)
+    or the value of a scalar (``grp.<op>``; 0 for ``warmup``, which returns
+    nothing)."""
     import hpclinalg_torch as ht
 
-    n = 16
-    A = ht.DistSparseMatrix.from_scipy(laplace2d(4), be)
-    x = ht.DistVector.from_global(np.arange(n, dtype=np.float64), be)
-
-    def setv():
-        x[1:3] = 1.0
-
-    def setA():
-        A[0:2, 0:2] = 1.0
-
-    D = ht.DistDenseMatrix.from_global(np.ones((n, 2)), be)
-
-    def setD():
-        D[0:2, 0:1] = 2.0
-
-    return {
-        "dense_getindex": lambda: D[0:2, 0:1], "dense_setindex": setD,
-        "dense_mapslices_rows": lambda: D.mapslices(lambda r: 2 * r, axis=1),
-        "dense_cat": lambda: ht.cat(D, D),
-        "vector_getindex": lambda: x[1:3], "vector_setindex": setv,
-        "sparse_getindex": lambda: A[0:2, 0:2], "sparse_setindex": setA,
-        "cat": lambda: ht.cat(A, A), "blockdiag": lambda: ht.blockdiag(A, A),
-        "vcat_vectors": lambda: ht.vcat_vectors(x, x),
-        "hcat_vectors": lambda: ht.hcat_vectors(x, x),
-        "norm": lambda: A.norm(), "opnorm": lambda: A.opnorm(),
-        "sum": lambda: A.sum(), "row_sum": lambda: A.sum(axis=1),
-        "tr": lambda: A.tr(), "maximum": lambda: A.maximum(),
-        "minimum": lambda: A.minimum(), "mean": lambda: A.mean(),
-        "map_rows": lambda: ht.map_rows(lambda r: 2 * r, x),
-        "warmup": lambda: ht.warmup(be),
-    }
-
-
-def guards(be) -> dict:
-    """On a group: 1 for each guarded operation that raised
-    NotImplementedError naming the process group, 0 for one that ran."""
-    if not be.is_dist:
-        return {}
+    res = assembly_cases(ht, be, assembly_inputs(be.nshards), torch.stack)
     out = {}
-    for name, call in guarded_ops(be).items():
-        try:
-            call()
-            out[name] = 0
-        except NotImplementedError as e:
-            if "process-group backend" not in str(e):
-                raise
-            out[name] = 1
-    return {f"guard.{k}": np.asarray(v) for k, v in out.items()}
+    for op, case in GROUP_OPS.items():
+        key = f"{case}.local" if f"{case}.local" in res else case
+        out[f"grp.{op}" + key[len(case):]] = res[key]
+    return out
 
+
+# -- the process ---------------------------------------------------------------
 
 def meta(be) -> dict:
     return {"meta.rank": np.asarray(be.rank), "meta.world": np.asarray(be.world),
@@ -1167,6 +1348,37 @@ def solvers(be, k: int = 512, k_small: int = 256,
     return {f"sol.{k}": _np(v) for k, v in out.items()}
 
 
+# -- chip_smoke.py phase 14: the KKT assembly at full width, per rank ----------
+
+def assembly(be, k: int = 1000, m: int = 10_000, seed: int = 30,
+             trace_dir: str | None = None) -> dict:
+    """``tools/kkt.drive`` on this rank's shard at chip_smoke.py phase 10's
+    width (K = [[A, Bᵀ], [B, −10⁻⁶ I]], A = laplace2d(k), B m x k² with 16
+    entries a row, ``kkt.Inputs(k, m, seed)`` built in every rank), every
+    step held against scipy in this rank (a failing check raises), its one
+    traced ``K @ z`` written to ``trace_dir``. The kernels' launch
+    counters are set to 0 just before the drive and read just after
+    (``launches.*``). Returns the drive's engines, its first (plan build)
+    and cached times (``time.*``) and its step seconds (``step.*``)."""
+    from . import kkt
+
+    t0 = time.perf_counter()
+    I = kkt.Inputs(k, m, seed)
+    out = {"secs.inputs": time.perf_counter() - t0}
+    reset_launch_counts()
+    res, secs = kkt._timed(lambda: kkt.drive(be, I, trace_dir=trace_dir))
+    out.update({f"launches.{c}": v for c, v in launch_counts().items()})
+    out["secs.drive"] = secs
+    for key, v in res.items():
+        if key == "steps_s":
+            out.update({f"step.{st}": t for st, t in v.items()})
+        elif isinstance(v, str):
+            out[key] = v
+        else:
+            out[f"time.{key}"] = v
+    return {f"asm.{key}": _np(v) for key, v in out.items()}
+
+
 def host_profile(fn, calls: int = 200, top: int = 12) -> str:
     """Where the host time of ``fn`` goes, over ``calls`` calls queued
     without a wait, as JSON: the ``top`` Python functions by their own
@@ -1216,16 +1428,17 @@ def host_profile(fn, calls: int = 200, top: int = 12) -> str:
 def checks(be) -> dict:
     """Every body of the CPU tests, in one fixed order."""
     out = {}
-    for body in (vectors, exchange, spmv, cg, solves, utilities, guards):
+    for body in (vectors, exchange, spmv, cg, solves, utilities, group_ops):
         out.update(body(be))
     return out
 
 
 BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
           "spmv": spmv, "algebra": algebra, "cg": cg, "solves": solves,
-          "utilities": utilities, "guards": guards, "card": card,
+          "utilities": utilities, "group_ops": group_ops, "card": card,
           "solver_checks": solver_checks, "chol_failure": chol_failure,
-          "solvers": solvers}
+          "solvers": solvers, "assembly_checks": assembly_checks,
+          "assembly": assembly}
 
 
 def on_rank(device: str, body: str, kwargs: dict) -> dict:

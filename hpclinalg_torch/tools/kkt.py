@@ -6,8 +6,11 @@ equality-constrained least squares or Lagrange-multiplier constraints,
 impose Dirichlet rows and take submatrices for block preconditioners.
 ``drive`` runs that path on one backend: A = laplace2d(k) (n = k² grid
 nodes), B m × n with ``per_row`` N(0, 1) entries a row at random columns,
-δ = 1e-6. ``tests/test_torch_slice.py`` drives it at a small size on the
-CPU; on the card
+δ = 1e-6. On a process group (``backend_dist``) every rank runs it on its
+own shard and holds each step against scipy itself
+(``tools/dist_checks.assembly``, ``chip_smoke.py`` phase 14).
+``tests/test_torch_slice.py`` and ``tests/test_torch_dist_assembly.py``
+drive it at a small size on the CPU; on the card
 
     python -m hpclinalg_torch.tools.kkt [k=1000] [m=10000] [--trace DIR]
 
@@ -24,7 +27,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import time
 
 import numpy as np
@@ -202,9 +204,12 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     the SpMV engine of K @ z, by name."""
     import hpclinalg_torch as ht
     from hpclinalg_torch.ops.spmv import get_spmv_plan
+    from hpclinalg_torch.utils.profiling import trace_path
 
     out = {}
     n, S = I.n, be.nshards
+    # on a group S is the world, and each rank names itself
+    where = f"rank {be.rank} of {S}" if be.is_dist else f"S={S}"
     # wall seconds of each step, its checks against scipy included
     steps = out["steps_s"] = {}
     mark = [time.perf_counter()]
@@ -224,7 +229,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     # 1. K = [[A, Bᵀ], [B, −δI]]
     K, out["cat_first_s"], out["cat_cached_s"] = _first_and_cached(
         lambda: ht.cat(*parts, dims=(2, 2)))
-    check(same_csr(K, I.K), f"S={S}: cat equals sp.bmat bit for bit "
+    check(same_csr(K, I.K), f"{where}: cat equals sp.bmat bit for bit "
           f"({K.shape[0]} rows, {K.nnz()} nnz)")
     done("cat")
 
@@ -232,38 +237,38 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     Kz, out["matvec_first_s"], out["matvec_cached_s"] = _first_and_cached(
         lambda: K @ z)
     out["engine"] = get_spmv_plan(K, z).engine(torch.float64)
-    _near(Kz.to_numpy(), I.Kz, 1e-12, f"S={S}: K @ z ({out['engine']})",
+    _near(Kz.to_numpy(), I.Kz, 1e-12, f"{where}: K @ z ({out['engine']})",
           check)
     Ktw, out["rmatvec_first_s"], out["rmatvec_cached_s"] = \
         _first_and_cached(lambda: K.T @ w)
-    _near(Ktw.to_numpy(), I.Ktw, 1e-12, f"S={S}: K.T @ w", check)
+    _near(Ktw.to_numpy(), I.Ktw, 1e-12, f"{where}: K.T @ w", check)
     done("matvec")
 
     # 3. indexing
     K11, out["getindex_first_s"], out["getindex_cached_s"] = \
         _first_and_cached(lambda: K[0:n, 0:n])
-    check(same_csr(K11, I.A), f"S={S}: K[0:n, 0:n] equals A bit for bit")
-    check(same_csr(K[n:, 0:n], I.B), f"S={S}: K[n:, 0:n] equals B")
-    check(same_csr(K[I.p, I.p], I.Kp), f"S={S}: K[p, p], {len(I.p)} ids "
+    check(same_csr(K11, I.A), f"{where}: K[0:n, 0:n] equals A bit for bit")
+    check(same_csr(K[n:, 0:n], I.B), f"{where}: K[n:, 0:n] equals B")
+    check(same_csr(K[I.p, I.p], I.Kp), f"{where}: K[p, p], {len(I.p)} ids "
           "with repeats, equals scipy's")
     col = K[:, I.j]
     check(isinstance(col, ht.DistVector)
           and np.array_equal(col.to_numpy(), I.Kj),
-          f"S={S}: K[:, j] as a DistVector")
-    check(np.array_equal(z[n:].to_numpy(), I.z[n:]), f"S={S}: z[n:]")
+          f"{where}: K[:, j] as a DistVector")
+    check(np.array_equal(z[n:].to_numpy(), I.z[n:]), f"{where}: z[n:]")
     zz = ht.DistVector.from_global(I.z, be)
     zz[I.ids] = I.vals
     check(np.array_equal(zz.to_numpy(), I.zh) and np.array_equal(
-        z.to_numpy(), I.z), f"S={S}: z[ids] = vals, repeated ids keep the "
+        z.to_numpy(), I.z), f"{where}: z[ids] = vals, repeated ids keep the "
         "last write, z untouched")
     check(np.array_equal(ht.vcat_vectors(zz[0:n], zz[n:]).to_numpy(), I.zh),
-          f"S={S}: vcat_vectors(z[0:n], z[n:]) is z")
+          f"{where}: vcat_vectors(z[0:n], z[n:]) is z")
     H = ht.hcat_vectors(zz[0:n], x)
     check(np.array_equal(H.to_numpy(), np.stack([I.zh[:n], I.x], axis=1)),
-          f"S={S}: hcat_vectors(z[0:n], x)")
+          f"{where}: hcat_vectors(z[0:n], x)")
     out["k11_engine"] = get_spmv_plan(K11, x).engine(torch.float64)
     _near((K11 @ x).to_numpy(), I.Ax, 1e-12,
-          f"S={S}: K[0:n, 0:n] @ x ({out['k11_engine']}) against A @ x",
+          f"{where}: K[0:n, 0:n] @ x ({out['k11_engine']}) against A @ x",
           check)
     done("indexing")
 
@@ -273,14 +278,14 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
         lambda: K.__setitem__((I.bnd, I.bnd), sp.eye(len(I.bnd))))
     check(same_csr(K, I.K_edit) and K.hash != h0
           and K.cached_transpose is None,
-          f"S={S}: K[bnd, bnd] = I on {len(I.bnd)} boundary nodes")
-    check(get_spmv_plan(K, z) is not plan0, f"S={S}: a new SpMV plan")
-    _near((K @ z).to_numpy(), I.Rz, 1e-12, f"S={S}: K @ z after the edit",
+          f"{where}: K[bnd, bnd] = I on {len(I.bnd)} boundary nodes")
+    check(get_spmv_plan(K, z) is not plan0, f"{where}: a new SpMV plan")
+    _near((K @ z).to_numpy(), I.Rz, 1e-12, f"{where}: K @ z after the edit",
           check)
     _near((K.T @ w).to_numpy(), I.Rtw, 1e-12,
-          f"S={S}: K.T @ w after the edit", check)
+          f"{where}: K.T @ w after the edit", check)
     check(K.issymmetric() == I.R_symmetric,
-          f"S={S}: issymmetric() is {I.R_symmetric}")
+          f"{where}: issymmetric() is {I.R_symmetric}")
     done("setindex")
 
     # 5. reductions, rtol 1e-12
@@ -294,7 +299,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     for name, fn in red.items():
         got = fn()
         got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
-        _near(got, I.reductions[name], 1e-12, f"S={S}: K.{name}", check,
+        _near(got, I.reductions[name], 1e-12, f"{where}: K.{name}", check,
               I.reduction_scale.get(name))
     out["reductions_first_s"] = time.perf_counter() - t0
     done("reductions")
@@ -303,16 +308,16 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     D = ht.DistDenseMatrix.from_global(I.D, be)
     pd = I.p[I.p < n]
     check(np.array_equal(D[pd, 2:5].to_numpy(), I.D[pd, 2:5]),
-          f"S={S}: D[p, 2:5]")
+          f"{where}: D[p, 2:5]")
     D[I.Drows, 2:5] = I.Dvals
     Dh = I.Dh
-    check(np.array_equal(D.to_numpy(), Dh), f"S={S}: D[rows, 2:5] = vals, "
+    check(np.array_equal(D.to_numpy(), Dh), f"{where}: D[rows, 2:5] = vals, "
           "the last write wins")
     E = D[0:100, :]
     check(np.array_equal(ht.vcat_dense(D, E).to_numpy(),
-                         np.vstack([Dh, Dh[:100]])), f"S={S}: vcat_dense")
+                         np.vstack([Dh, Dh[:100]])), f"{where}: vcat_dense")
     check(np.array_equal(ht.hcat_dense(D, D[:, 0:3]).to_numpy(),
-                         np.hstack([Dh, Dh[:, :3]])), f"S={S}: hcat_dense")
+                         np.hstack([Dh, Dh[:, :3]])), f"{where}: hcat_dense")
     done("dense")
 
     # 7. map_rows: grid coordinates, then sin(pi x) sin(pi y)
@@ -324,15 +329,15 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
                     * torch.sin(math.pi * c[1]), XY)
     xs, ys = I.xy[:, 0], I.xy[:, 1]
     check(XY.shape == (n, 2) and np.array_equal(XY.to_numpy(), I.xy),
-          f"S={S}: map_rows grid coordinates from vertex_indices")
+          f"{where}: map_rows grid coordinates from vertex_indices")
     _near(f.to_numpy(), np.sin(np.pi * xs) * np.sin(np.pi * ys), 1e-13,
-          f"S={S}: map_rows sin(pi x) sin(pi y)", check)
+          f"{where}: map_rows sin(pi x) sin(pi y)", check)
     _near(XY.mapslices(lambda r: r[0] * r[1]).to_numpy(), xs * ys, 1e-13,
-          f"S={S}: mapslices over rows", check)
+          f"{where}: mapslices over rows", check)
     _near(D.mapslices(lambda c: torch.stack([c.sum(), c.abs().max()]),
                       axis=0).to_numpy(),
           np.stack([Dh.sum(0), np.abs(Dh).max(0)]), 1e-12,
-          f"S={S}: mapslices over columns", check)
+          f"{where}: mapslices over columns", check)
     done("map_rows")
 
     # 8. blockdiag(A, A) @ [x; x]
@@ -341,7 +346,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
         BD, ht.vcat_vectors(x, x)).engine(torch.float64)
     _near((BD @ ht.vcat_vectors(x, x)).to_numpy(),
           np.concatenate([I.Ax] * 2), 1e-12,
-          f"S={S}: blockdiag(A, A) @ [x; x] ({out['blockdiag_engine']})",
+          f"{where}: blockdiag(A, A) @ [x; x] ({out['blockdiag_engine']})",
           check)
     done("blockdiag")
 
@@ -353,7 +358,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     check(Bb.nzval.device == be.device and same_csr(Bb, I.B)
           and xb.data.device == be.device
           and np.array_equal(xb.to_numpy(), I.x),
-          f"S={S}: to_backend from the CPU to {be.device}")
+          f"{where}: to_backend from the CPU to {be.device}")
     done("to_backend")
 
     # 10. profile_trace around one K @ z inside annotate("kkt_matvec")
@@ -361,7 +366,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
         with ht.profile_trace(trace_dir, backend=be):
             with ht.annotate("kkt_matvec"):
                 K @ z
-        with open(os.path.join(trace_dir, "trace.json")) as fh:
+        with open(trace_path(trace_dir, be)) as fh:
             events = json.load(fh)["traceEvents"]
         names = {e.get("name", "") for e in events}
         kernels = sorted({e.get("name", "")[:40] for e in events
@@ -369,7 +374,7 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
         kn = ENGINE_KERNELS.get(out["engine"], "") \
             if be.device.type == "cuda" else ""
         check("kkt_matvec" in names and any(kn in nm for nm in names),
-              f"S={S}: the trace holds kkt_matvec and the {out['engine']} "
+              f"{where}: the trace holds kkt_matvec and the {out['engine']} "
               f"kernel {kn!r} (annotation "
               f"{'found' if 'kkt_matvec' in names else 'missing'}; "
               f"{len(events)} events, device kernels {kernels})")

@@ -13,12 +13,28 @@ import os
 from ..cache import cache_sizes
 
 
+def trace_path(log_dir: str, backend=None) -> str:
+    """The file ``profile_trace`` writes: ``log_dir/trace.json``, or
+    ``log_dir/trace.rank<r>.json`` on rank r of a process group (the
+    backend's, or without a backend the default group when one is up), so
+    the ranks never write one file."""
+    if backend is not None:
+        rank = backend.rank if backend.is_dist else None
+    else:
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_available() \
+            and dist.is_initialized() else None
+    name = "trace.json" if rank is None else f"trace.rank{rank}.json"
+    return os.path.join(log_dir, name)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str, backend=None):
     """Trace the region with ``torch.profiler`` (CPU activity, and CUDA
     activity when ``backend`` is on the card, or with no backend when a
-    CUDA device is present), write it to ``log_dir/trace.json`` (Chrome
-    trace format) and print the plan-cache entries built inside."""
+    CUDA device is present), write it to ``trace_path(log_dir, backend)``
+    (Chrome trace format) and print the plan-cache entries built inside."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -35,7 +51,7 @@ def profile_trace(log_dir: str, backend=None):
             torch.cuda.synchronize()
         prof.stop()
         os.makedirs(log_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        prof.export_chrome_trace(trace_path(log_dir, backend))
         after = cache_sizes()
         delta = {k: after.get(k, 0) - before.get(k, 0)
                  for k in set(before) | set(after)

@@ -34,8 +34,8 @@ def build_kernels() -> None:
 
 
 def warmup(backend) -> None:
-    """Run tiny versions of the hot operations on ``backend``."""
-    backend.require_stacked("warmup (utils/warmup.py)")
+    """Run tiny versions of the hot operations on ``backend``; on a process
+    group every rank calls it (its steps are collectives)."""
     from ..dense import DistDenseMatrix
     from ..solver.api import ldlt
     from ..sparse import DistSparseMatrix

@@ -5,7 +5,9 @@ Each world (2 and 4 ranks, gloo, CPU) is spawned once for the module
 and every rank runs ``tools/dist_checks.checks`` on ``ht.backend_dist``:
 containers on a partition with an empty shard, the exchange, ``A @ x``
 on every engine, the reductions, 20 CG steps, host solves with the
-backslash cache, the utilities and the guards. Its results are compared
+backslash cache, the utilities and the operations of indexing,
+assignment, blocks, the sparse reductions, ``map_rows`` and ``warmup``
+(``dist_checks.group_ops``). Its results are compared
 with the JAX package at the same shard count on the same seeded inputs
 (values rtol 1e-12, CG iterates and solves rtol 1e-10; f32 CG at 1e-5 of
 the largest entry) and with the port's stacked backend at the same S (a
@@ -31,12 +33,8 @@ from hpclinalg_torch.tools.matrices import laplace2d
 torch.set_num_threads(1)
 
 DEADLINE_S = 120
-GUARDED = ("dense_getindex", "dense_setindex", "dense_mapslices_rows",
-           "dense_cat", "vector_getindex",
-           "vector_setindex", "sparse_getindex", "sparse_setindex", "cat",
-           "blockdiag", "vcat_vectors", "hcat_vectors", "norm", "opnorm",
-           "sum", "row_sum", "tr", "maximum", "minimum", "mean", "map_rows",
-           "warmup")
+# group operations whose results are sums (another order on a group)
+GROUP_SUMMED = ("norm", "opnorm", "sum", "row_sum", "tr", "mean")
 
 
 class World:
@@ -328,16 +326,27 @@ def test_with_dtype_keeps_the_group(world):
         xh, jbe, partition=dc.empty_shard_partition(n, S)).data))
 
 
-def test_every_guarded_operation_is_checked(world):
+def test_every_group_operation_is_checked(world):
     for out in world.ranks:
-        assert {k[len("guard."):] for k in out if k.startswith("guard.")} \
-            == set(GUARDED)
+        assert {k[len("grp."):].removesuffix(".local") for k in out
+                if k.startswith("grp.")} == set(dc.GROUP_OPS)
 
 
-@pytest.mark.parametrize("op", GUARDED)
-def test_guarded_operation_raises_on_a_group(world, op):
-    for r, out in enumerate(world.ranks):
-        assert int(out[f"guard.{op}"]) == 1, f"{op} ran on rank {r}"
+@pytest.mark.parametrize("op", dc.GROUP_OPS)
+def test_group_operation_equals_the_stacked_rows(world, op):
+    """Each operation runs on the group, and each rank's rows (or the
+    value, the same on every rank) equal the stacked backend's at that S:
+    moved values bit for bit, sums rtol 1e-12."""
+    key = f"grp.{op}.local"
+    if key in world.stacked:
+        got, want = world.rows(key), world.stacked[key]
+    else:
+        key = f"grp.{op}"
+        got, want = world.same_on_every_rank(key), world.stacked[key]
+    if op in GROUP_SUMMED:
+        close(got, want, 1e-12)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n", (2, 4))
