@@ -184,6 +184,26 @@ hpclinalg_torch/csrc, then:
      kkt_matvec and K2's launch range; one JSON line an arrangement prints
      each rank's first (plan build) and cached times and step seconds
      beside phase 10's stacked S = 1 and S = 4 times.
+ 15. runs the JAX entry point's compiled CG step (hpclinalg_torch.entry:
+     cg_step_fn over the plan's raw tensors, entry(), and capture, the
+     step captured once as a CUDA graph, the counterpart of jax.jit) in a
+     process of its own (python -m hpclinalg_torch.tools.cg_graph), f64
+     unless said: (i) laplace2d(1000) at S = 1 (K1), (ii) at S = 4 (K2's
+     gather mode, then K1), (iii) the ridge N (K3), (iv) the random
+     10^6 x 8 matrix (K2), (v) entry() itself (laplace2d(64), f32, K1).
+     Each case's launch counters are set to 0 just before its 20 eager raw
+     steps and read just after its capture and 20 replays, which must
+     equal the eager steps bit for bit, the public-API CG to 1e-10 (f32 1e-5) and, for (i) and
+     (v), a host replay in numpy (1e-10; 1e-4 in f64 and f32); it prints
+     the wall time a step (CUDA events, median of 5 runs of 50), the host
+     time a step and, from one torch.profiler session, the device time
+     and kernels of one call, for the replay, the eager raw step and
+     phase 4's public-API step taken in turns, and checks that a step
+     that reads a value on the host fails to capture. Then case (i) with
+     one shard a process (tools/dist_checks.entry_steps): NCCL at world 1
+     graphed (its three all_reduces in the graph) and eager, gloo at world
+     4 on the card eager, where capture must refuse the group; each rank
+     held against the same steps stacked (rtol 1e-10).
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -199,7 +219,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from hpclinalg_torch.tools.ell_ab import cg, device_events, kernel_times
+from hpclinalg_torch.tools.ell_ab import (busy_us, cg, device_events,
+                                          kernel_times)
 from hpclinalg_torch.tools.matrices import (banded_design,
                                             between_eigenvalues,
                                             complex_values, helmholtz,
@@ -242,14 +263,8 @@ def device_us(fn):
     """Device time of the kernels and copies that ``fn`` launches, from a
     torch.profiler trace: the union of their intervals in microseconds, and
     how many there were."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in device_events(fn))
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy, len(spans)
+    events = device_events(fn)
+    return busy_us(events), len(events)
 
 
 def device_kernels(fn, top=4):
@@ -267,10 +282,7 @@ def engine_inputs(A, x):
     from hpclinalg_torch.ops import spmv as spmv_mod
 
     plan = spmv_mod.get_spmv_plan(A, x)
-    ex = plan.exchange
-    g, pad_to = (x.data, ex.out_pad) if ex.is_identity \
-        else (ex.apply(x.data), 0)
-    return plan, g, pad_to
+    return (plan,) + spmv_mod.gathered(plan, x.data)
 
 
 def ell_call(plan, Md, g, pad_to):
@@ -850,7 +862,7 @@ def phase9_device_solver(ht, dev, card, times):
             eps = 1e-10 * float(A.nzval.abs().max())
             fac_ms = timed_ms(lambda: eng.factor(Avals, eps), 3)
             _, peak = peak_mb(lambda: eng.factor(Avals, eps))
-            busy_us, nlaunch = device_us(lambda: eng.factor(Avals, eps))
+            fbusy_us, nlaunch = device_us(lambda: eng.factor(Avals, eps))
             top = named(device_kernels(lambda: eng.factor(Avals, eps), top=6))
             Fh = ht.ldlt(A)
             host_ms = timed_ms(lambda: Fh.refactorize(A), 3)
@@ -886,9 +898,9 @@ def phase9_device_solver(ht, dev, card, times):
                    "plan_build_s": plan_s, "first_ldlt_s": first_s,
                    "factor_launches": nlaunch,
                    # None: not measured (the trace held no device activity)
-                   "factor_device_ms": busy_us / 1e3 if nlaunch else None,
+                   "factor_device_ms": fbusy_us / 1e3 if nlaunch else None,
                    "factor_busy_share":
-                       busy_us / 1e3 / fac_ms if nlaunch else None,
+                       fbusy_us / 1e3 / fac_ms if nlaunch else None,
                    "factor_peak_mib": peak,
                    "max_memory_allocated_mib":
                        torch.cuda.max_memory_allocated() / 2 ** 20,
@@ -2027,6 +2039,120 @@ def phase14_assembly(card, times):
     return launches
 
 
+# ---- phase 15: the compiled CG step (hpclinalg_torch.entry) -----------------
+
+DIST15_DEADLINE_S = 60   # each arrangement's spawn, set-up and steps
+ENTRY_RTOL = 1e-10       # a rank's 20 f64 steps against the stacked ones
+
+
+def phase15_entry(ht, dev, card, times):
+    """The JAX entry point's compiled CG step: ``python -m
+    hpclinalg_torch.tools.cg_graph`` in a process of its own (its one
+    profiler session is that process's first), which captures cases
+    (i)-(v) as CUDA graphs and holds 20 replays against the eager raw
+    step (bit for bit), the public-API CG and a host replay, and times
+    the three steps; then case (i) with one shard a process
+    (``tools/dist_checks.entry_steps`` on laplace2d(K), f64): (a) NCCL at
+    world 1, graphed and eager, (b) gloo at world DIST_WORLD on the card,
+    eager, where ``capture`` must refuse the group, (c) NCCL at world =
+    device count with two cards or more, graphed (the exchange's
+    ``all_to_all_single`` and the three all_reduces in the graph) and
+    eager. Each rank's 20 steps
+    are held against the same steps stacked here at that S (rtol
+    ENTRY_RTOL; the dots are summed in another order on a group). Returns
+    each kernel's launches over the cases (set to 0 just before each
+    case's eager steps and read just after its replays) and per rank by
+    arrangement. The stacked references take cg_graph's right-hand side
+    (``B_SEED``), so at S = 1 they are its case (i) again."""
+    import os
+
+    from hpclinalg_torch.parallel.launch import run_ranks
+    from hpclinalg_torch.tools import dist_checks as dc
+    from hpclinalg_torch.tools.cg_graph import B_SEED
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m",
+                           "hpclinalg_torch.tools.cg_graph"], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr, flush=True)
+        raise RuntimeError(f"chip_smoke check failed: phase 15's cases "
+                           f"exited {proc.returncode}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(record["card"] == card and set(record["cases"]) == {
+        "lap", "lap_s4", "N", "random8", "entry"},
+        "phase 15 ran cases (i)-(v) on this card; each equalled its eager "
+        "raw step bit for bit")
+    launches = {k: sum(record["launches"][c][k] for c in record["launches"])
+                for k in dc.LAUNCH_COUNTERS}
+    kw = {"k": K, "seed": B_SEED, "dtypes": ("float64",)}
+    count = torch.cuda.device_count()
+    arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
+    if count >= 2:
+        arrangements.append(("nccl", count))
+    else:
+        print("  (c) NCCL at world = device count: skipped: one card",
+              flush=True)
+    refs = {S: dc.entry_steps(ht.backend_auto(S, device=dev), graphed=True,
+                              **kw) for S in {S for _, S in arrangements}}
+    torch.cuda.empty_cache()
+    dist = {k: {} for k in dc.LAUNCH_COUNTERS}
+    for transport, world in arrangements:
+        what = f"{transport} world {world}"
+        key = f"{transport}_world{world}"
+        graphed = transport == "nccl"
+        ranks, secs = timed_s(lambda: run_ranks(
+            "hpclinalg_torch.tools.dist_checks:on_rank", world,
+            backend=transport, device="cuda", deadline_s=DIST15_DEADLINE_S,
+            args=("entry_steps", dict(kw, graphed=graphed, timed=True))))
+        err = 0.0
+        for r, out in enumerate(ranks):
+            check(int(out["meta.nlocal"]) == 1 and not bool(out["meta.jax"])
+                  and str(out["entry.float64.engine"]) == "dia",
+                  f"{what} rank {r}: one shard, no JAX, the dia engine")
+            if graphed:
+                check(bool(out["entry.float64.graphed_equal"]),
+                      f"{what} rank {r}: 20 replays of the captured step "
+                      "(its collectives in the graph) equal 20 eager "
+                      "steps bit for bit")
+            else:
+                check("gloo" in str(out["entry.float64.refused"]),
+                      f"{what} rank {r}: capture refuses the gloo group")
+            for v in "xrp":
+                ok, e = close(torch.from_numpy(out[f"entry.float64.{v}.local"]),
+                              torch.from_numpy(refs[world][
+                                  f"entry.float64.{v}.local"][r: r + 1]),
+                              ENTRY_RTOL)
+                check(ok, f"{what} rank {r}: {v} after 20 steps equals the "
+                      f"stacked S={world} steps (rtol {ENTRY_RTOL:g}, "
+                      f"max_abs_err={e:.3e})")
+                err = max(err, e)
+            n = {k: int(out[f"entry.launches.float64.{k}"])
+                 for k in dc.LAUNCH_COUNTERS}
+            check(n["dia"] >= 1 and (world == 1 or n["gather"] >= 1),
+                  f"{what} rank {r} launched K1 and, across ranks, K2's "
+                  f"gather mode: {n}")
+        for k in dc.LAUNCH_COUNTERS:
+            dist[k][key] = [int(r[f"entry.launches.float64.{k}"])
+                            for r in ranks]
+        rec = {"phase15": key, "card": card, "seconds": secs,
+               **{t[len("entry.time.float64."):]: [
+                   float(r[t]) for r in ranks]
+                  for t in ranks[0] if t.startswith("entry.time.")},
+               "stacked_S1": {v: record["cases"]["lap"][v]
+                              for v in ("graphed", "eager", "api")},
+               "launches": {k: dist[k][key] for k in dc.LAUNCH_COUNTERS},
+               "max_abs_err": err}
+        times[f"phase15_{key}"] = rec
+        print(json.dumps(rec), flush=True)
+    times["phase15"] = record
+    return launches, dist
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs one GPU")
@@ -2344,9 +2470,9 @@ def main():
     for name, us in device_kernels(lambda: cg(A, b, 20), top=8):
         print(f"  CG step device time by kernel: {us / 20:8.2f} us a step  "
               f"{name[:60]}  [{card}]", flush=True)
-    busy_us, nspans = device_us(lambda: cg(A, b, 20))
+    cg_us, nspans = device_us(lambda: cg(A, b, 20))
     if nspans:
-        times["cg_step_device_us"] = busy_us / 20
+        times["cg_step_device_us"] = cg_us / 20
         times["cg_step_device_busy_share"] = \
             times["cg_step_device_us"] / (1e3 * times["cg_step_ms"])
         print(f"  CG step device activity: {nspans / 20:g} kernels/copies "
@@ -2472,6 +2598,15 @@ def main():
     print(f"phase 14 launches per rank: {kkt_dist}; phase 14 took "
           f"{t14:.1f} s  [{card}]", flush=True)
 
+    # ---- phase 15: the compiled CG step, captured as a CUDA graph ----------
+    print(f"phase 15: the JAX entry point's CG step (hpclinalg_torch.entry: "
+          f"cg_step_fn, entry, capture) as a CUDA graph, cases (i)-(v), then "
+          f"NCCL world 1 and gloo world {DIST_WORLD} on {card}", flush=True)
+    (graph_launches, graph_dist), t15 = timed_s(
+        lambda: phase15_entry(ht, dev, card, times))
+    print(f"phase 15 launches (cases): {graph_launches}; per rank: "
+          f"{graph_dist}; phase 15 took {t15:.1f} s  [{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -2497,6 +2632,8 @@ def main():
          "kkt_dist_launches": kkt_dist["dia"],
          "dist_launches": dist_launches["dia"],
          "dist_solver_launches": sol_launches["dia"],
+         "graph_launches": graph_launches["dia"],
+         "graph_dist_launches": graph_dist["dia"],
          "max_abs_err": errs["dia"],
          **timed(("dia", 1, f64))},
         {"name": "ell_spmv (K2)", "route": "cuda",
@@ -2506,6 +2643,7 @@ def main():
          "kkt_dist_launches": kkt_dist["ell"],
          "dist_launches": dist_launches["ell"],
          "dist_solver_launches": sol_launches["ell"],
+         "graph_launches": graph_launches["ell"],
          "max_abs_err": errs["ell"],
          **timed(("random8", 1, f64))},
         {"name": "gather (K2 gather-only mode)", "route": "cuda",
@@ -2517,6 +2655,8 @@ def main():
          "kkt_dist_launches": kkt_dist["gather"],
          "dist_launches": dist_launches["gather"],
          "dist_solver_launches": sol_launches["gather"],
+         "graph_launches": graph_launches["gather"],
+         "graph_dist_launches": graph_dist["gather"],
          "max_abs_err": errs["gather"],
          **timed(("gather", 1, f64))},
         {"name": "ell_resident_spmv (K3)", "route": "cuda",
@@ -2526,6 +2666,7 @@ def main():
          "kkt_launches": launches10["resident"],
          "dist_launches": dist_launches["resident"],
          "dist_solver_launches": sol_launches["resident"],
+         "graph_launches": graph_launches["resident"],
          "max_abs_err": errs["resident"],
          **timed(("k3", "N", 1, f64))},
         {"name": "dia_flat_spmv (K4)", "route": "cuda",

@@ -2,14 +2,17 @@
 
 Row-partitioned vectors, CSR sparse matrices and dense matrices stored as
 stacked-shard tensors on one device, or one shard a process over a
-``torch.distributed`` process group (``backend_dist``: containers, the
-exchange, SpMV, the vector operations and the host solve so far; every
-other operation raises there); memoized exchange, SpMV, SpMM,
-transpose, addition and SpGEMM plans; hand-written Hopper kernels for the
-DIA, ELL and resident-x ELL SpMV engines and for the DIA and k-payload
-probes (``csrc/``, driven by ``hpclinalg_torch.tools``); indexing, index
-assignment, block assembly, sparse reductions and ``map_rows``; and the
-host C++ and device multifrontal direct solvers.
+``torch.distributed`` process group (``backend_dist``; every operation
+runs on a group); memoized exchange, SpMV, SpMM, transpose, addition and
+SpGEMM plans; hand-written Hopper kernels for the DIA, ELL and
+resident-x ELL SpMV engines and for the DIA and k-payload probes
+(``csrc/``, driven by ``hpclinalg_torch.tools``); indexing, index
+assignment, block assembly, sparse reductions and ``map_rows``; the host
+C++ and device multifrontal direct solvers; and, in
+``hpclinalg_torch.entry`` (outside ``__all__``, as the JAX package keeps
+its entry point in ``__graft_entry__``), the CG step over a plan's raw
+tensors (``cg_step_fn``), the JAX entry point's ``entry()``, and
+``capture``, the step captured once as a CUDA graph and replayed.
 The JAX package ``hpclinalg`` is the reference it is tested against; this
 package never imports it or JAX.
 """

@@ -1,0 +1,195 @@
+"""The compiled CG step: the port's counterpart of the JAX package's entry
+point (``__graft_entry__.py``).
+
+    from hpclinalg_torch.entry import capture, cg_step_fn, entry
+
+    step, args = entry()              # laplace2d(64), f32, one shard, on the card
+    step = capture(step, args)        # the counterpart of jax.jit(step)
+    x, r, p = args
+    for _ in range(20):
+        x, r, p = step(x, r, p)
+
+``cg_step_fn(A, be)`` builds one conjugate-gradient step as a function of
+this process's raw shards ``(x, r, p)``, each (nlocal, Lrow), closing over
+the static plan of ``A @ x`` (``ops/spmv.get_spmv_plan``): its exchange,
+its engine and the engine's value tables, built once here. The step is
+the JAX package's ``_cg_step_fn`` (``__graft_entry__.py:23-64``) with its
+three dots, each ``all_reduce``d on a process group as ``DistVector.dot``
+does, and α and β kept on the device: nothing in it reads a value on the
+host. Its SpMV takes the engine that ``A @ x`` takes (``ops/spmv.py``
+``gathered``, ``local_spmv``): K1 on the DIA engine, K2's gather mode
+before it on a non-identity exchange, K3 on the resident engine, K2 on the
+ELL engine. (The JAX step takes the segment sum off the DIA engine, so the
+two steps agree to a tolerance there, not bit for bit.)
+
+``capture(fn, args)`` is the counterpart of ``jax.jit`` for a step whose
+shapes are fixed: the step captured once as a ``torch.cuda.CUDAGraph`` and
+replayed. It runs on CUDA tensors only, and on a process group only over
+NCCL (gloo stages CUDA tensors through the host, which a graph cannot
+hold); it raises in every other case and never runs the step eagerly in
+the graph's place. A caller on the CPU or on a gloo group calls ``fn``
+itself: the eager raw step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .backend import backend_auto, torch_dtype
+from .ops.spmv import gathered, get_spmv_plan, local_spmv
+from .parallel import comm
+from .sparse import DistSparseMatrix
+from .tools.matrices import laplace2d
+from .vector import DistVector
+
+
+# capture's calls of the step before it is captured: at least one, so that
+# the one-time work a capture cannot hold (below) is done outside it
+WARMUP = 3
+
+
+def cg_step_fn(Ad: DistSparseMatrix, be):
+    """(cg_step, x0): one CG step over raw tensors and the zero start
+    vector on A's rows (``__graft_entry__._cg_step_fn``).
+    ``cg_step(x, r, p)`` takes this process's shards of the iterate, the
+    residual and the search direction, each (nlocal, Lrow) on ``be``'s
+    device, and returns the next three; the padding rows stay zero.
+    ``cg_step(x, r, p, out=(xo, ro, po))`` writes them into three tensors
+    that overlap no other one of the three, but may be x, r and p
+    themselves (each is written after its last read), with the same
+    arithmetic: ``capture``'s graph updates its static tensors so.
+    ``cg_step.backend``, ``.plan`` and ``.engine`` name what it runs on."""
+    x0 = DistVector.zeros(Ad.m, be, partition=Ad.row_partition)
+    plan = get_spmv_plan(Ad, x0)
+    dt = torch.promote_types(Ad.dtype, torch_dtype(be.dtype))
+    engine = plan.engine(dt)
+
+    def spmv(p):
+        g, pad_to = gathered(plan, p)
+        return local_spmv(Ad, plan, engine, g, pad_to)
+
+    # one product here (on every rank of a group, as the step) builds the
+    # engine's value tables and K3's windows, cached on A and its plan
+    spmv(x0.data)
+
+    def vdot(a, b):
+        return comm.all_reduce(be, torch.vdot(a.reshape(-1), b.reshape(-1)))
+
+    def cg_step(x, r, p, out=None):
+        xo, ro, po = (None,) * 3 if out is None else out
+        Ap = spmv(p)
+        rr = vdot(r, r)
+        alpha = rr / vdot(p, Ap)
+        x2 = torch.add(x, alpha * p, out=xo)
+        r2 = torch.sub(r, alpha * Ap, out=ro)
+        beta = vdot(r2, r2) / rr
+        p2 = torch.add(r2, beta * p, out=po)
+        return x2, r2, p2
+
+    cg_step.backend, cg_step.plan, cg_step.engine = be, plan, engine
+    return cg_step, x0
+
+
+def entry(device=None):
+    """(fn, example_args): the CG step on laplace2d(64) (n = 4096) in f32
+    on one shard, and its arguments ``(x0, b, b)`` with b all ones, each
+    (1, 4096): ``__graft_entry__.entry()``. On the current CUDA device;
+    without one it raises unless the caller asks for the CPU
+    (``device="cpu"``)."""
+    dtype = np.float32
+    be = backend_auto(1, dtype=dtype, device=device)
+    A = DistSparseMatrix.from_scipy(laplace2d(64), be, dtype=dtype)
+    cg_step, x0 = cg_step_fn(A, be)
+    b = DistVector.from_global(np.ones(A.m, dtype=dtype), be, dtype=dtype)
+    return cg_step, (x0.data, b.data, b.data)
+
+
+class CapturedStep:
+    """A step captured as a CUDA graph (``capture``). Calling it with
+    arguments shaped like the example copies each into the graph's static
+    input, or skips the copy where the argument is that tensor, replays
+    the graph and returns the static tensors, which then hold the step's
+    results: so ``x, r, p = step(x, r, p)`` replays with no copy. The next
+    call overwrites them; clone a result to keep it."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, static: tuple):
+        self.graph = graph
+        self.static = static
+
+    def __call__(self, *args):
+        if len(args) != len(self.static):
+            raise TypeError(f"the step takes {len(self.static)} tensors, "
+                            f"got {len(args)}")
+        for s, a in zip(self.static, args):
+            if a is not s:
+                s.copy_(a)
+        self.graph.replay()
+        return self.static
+
+
+def _check_capturable(fn, args) -> None:
+    be = getattr(fn, "backend", None)
+    if be is not None and be.is_dist:
+        import torch.distributed as dist
+
+        transport = str(dist.get_backend(be.group))
+        if transport != "nccl":
+            raise ValueError(
+                f"capture: the step's process group runs over {transport}, "
+                "which stages CUDA tensors through the host and cannot be "
+                "captured in a CUDA graph; call the step itself (eager) on "
+                "such a group, or use NCCL")
+    if not args or any(not isinstance(a, torch.Tensor)
+                       or a.device.type != "cuda" for a in args):
+        raise ValueError(
+            "capture: a CUDA graph takes CUDA tensors, got "
+            f"{[str(getattr(a, 'device', type(a).__name__)) for a in args]}"
+            "; on the CPU call the step itself (eager)")
+    if any(a.device != args[0].device for a in args):
+        raise ValueError("capture: the arguments lie on several devices")
+
+
+def capture(fn, example_args) -> CapturedStep:
+    """``fn`` captured once as a CUDA graph with a memory pool of its own:
+    the counterpart of ``jax.jit`` for a step whose shapes are fixed.
+    ``fn(*args, out=out)`` must write its results into ``out``, tensors
+    shaped like its arguments that may be those arguments, and return
+    ``out`` (``cg_step_fn``'s ``cg_step`` does). The example arguments are
+    copied into static tensors; ``fn`` runs WARMUP times on a side
+    stream first, into scratch tensors, so that the work a capture cannot
+    hold happens outside it (the kernels' libraries load, the launchers'
+    one-time shared-memory opt-ins and occupancy queries run, the
+    exchange's and K3's tables and cuBLAS's workspace are built, a NCCL
+    communicator starts); then ``fn(*static, out=static)`` is captured:
+    each replay updates the static tensors in place. Raises ValueError on
+    CPU tensors, on a step over a group that is not NCCL or on a ``fn``
+    that does not return ``out``, and RuntimeError when the capture
+    fails: it never runs ``fn`` eagerly in the graph's place."""
+    args = tuple(example_args)
+    _check_capturable(fn, args)
+    dev = args[0].device
+    static = tuple(a.detach().clone() for a in args)
+    scratch = tuple(torch.empty_like(a) for a in static)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            outs = fn(*static, out=scratch)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    if len(outs) != len(scratch) or any(
+            o is not s for o, s in zip(outs, scratch)):
+        raise ValueError("capture: fn(*args, out=out) must write its results "
+                         "into out and return it")
+    del outs, scratch
+    graph = torch.cuda.CUDAGraph()
+    try:
+        # thread_local: a NCCL watchdog thread's event queries stay legal
+        # while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn(*static, out=static)
+    except RuntimeError as e:
+        raise RuntimeError(f"capture: the step could not be captured as a "
+                           f"CUDA graph: {e}") from e
+    return CapturedStep(graph, static)

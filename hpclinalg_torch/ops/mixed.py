@@ -20,7 +20,7 @@ import torch
 from ..cache import cached_plan
 from .cuda_ell import check_index
 from .spmv import (_dense_block, _dia_values, _ell_spmm_apply, _pad_rows,
-                   get_spmm_plan)
+                   gathered, get_spmm_plan)
 
 
 def _dia_spmm(dval, g, offsets, bias_lo: int, bias_hi: int,
@@ -72,8 +72,7 @@ def sparse_times_dense(A, B):
     plan = get_spmm_plan(A, B)
     ex = plan.exchange
     if plan.offsets is not None:
-        g, pad_to = (B.data, ex.out_pad) if ex.is_identity \
-            else (ex.apply(B.data), 0)
+        g, pad_to = gathered(plan, B.data)
         C = _dia_spmm(_dia_values(A, plan), g, plan.offsets, plan.bias_lo,
                       plan.bias_hi, pad_to)
     elif plan.densify:

@@ -431,23 +431,20 @@ def _segment_spmv(A, g: torch.Tensor) -> torch.Tensor:
     return y[:, : st.Lrow].contiguous()
 
 
-def matvec(A, x):
-    """y = A @ x (ref: Base.:*(A::HPCSparseMatrix, x::HPCVector),
-    sparse.jl:2096-2128)."""
-    from ..vector import DistVector
-
-    if len(x) != A.ncols:
-        raise ValueError(f"dimension mismatch: A is {A.shape}, x has {len(x)}")
-    st = A.structure
-    plan = get_spmv_plan(A, x)
+def gathered(plan: SpMVPlan, xd: torch.Tensor):
+    """(g, pad_to): the engines' input for x's shards ``xd``. A fully local
+    gather hands the engines x itself, cut or zero-padded to the gathered
+    width (``pad_to``), and skips the exchange."""
     ex = plan.exchange
-    # fully local gather: the engines read x itself, cut or zero-padded to
-    # the gathered width, and the exchange is skipped
     if ex.is_identity:
-        g, pad_to = x.data, ex.out_pad
-    else:
-        g, pad_to = ex.apply(x.data), 0
-    engine = plan.engine(torch.promote_types(A.dtype, x.dtype))
+        return xd, ex.out_pad
+    return ex.apply(xd), 0
+
+
+def local_spmv(A, plan: SpMVPlan, engine: str, g: torch.Tensor,
+               pad_to: int) -> torch.Tensor:
+    """This process's rows of ``A @ x`` on the gathered x ``g``
+    (``gathered``) by ``engine`` (``plan.engine``): (nlocal, Lrow)."""
     if engine == "dia":
         y = dia_spmv(_dia_values(A, plan), g, plan.offsets, plan.bias_lo,
                      plan.bias_hi, pad_to)
@@ -464,7 +461,22 @@ def matvec(A, x):
             y = ell_spmv(*args, **kw)
     else:
         y = _segment_spmv(A, pad_trunc(g, pad_to))
-    return DistVector._wrap(y, st.row_partition, A.backend, plan.row_phash)
+    return y
+
+
+def matvec(A, x):
+    """y = A @ x (ref: Base.:*(A::HPCSparseMatrix, x::HPCVector),
+    sparse.jl:2096-2128)."""
+    from ..vector import DistVector
+
+    if len(x) != A.ncols:
+        raise ValueError(f"dimension mismatch: A is {A.shape}, x has {len(x)}")
+    plan = get_spmv_plan(A, x)
+    g, pad_to = gathered(plan, x.data)
+    y = local_spmv(A, plan, plan.engine(torch.promote_types(A.dtype, x.dtype)),
+                   g, pad_to)
+    return DistVector._wrap(y, A.structure.row_partition, A.backend,
+                            plan.row_phash)
 
 
 # -- SpMM: the same engines with (k,) row payloads ------------------------------

@@ -65,9 +65,7 @@ def plan_inputs(Ad, xv):
     plan = spmv_mod.get_spmv_plan(Ad, xv)
     if plan.offsets is None:
         raise ValueError("the matrix does not take the DIA engine")
-    ex = plan.exchange
-    g, pad_to = (xv.data, ex.out_pad) if ex.is_identity \
-        else (ex.apply(xv.data), 0)
+    g, pad_to = spmv_mod.gathered(plan, xv.data)
     return plan, (spmv_mod._dia_values(Ad, plan), g, plan.offsets,
                   plan.bias_lo, plan.bias_hi, pad_to)
 

@@ -1,6 +1,7 @@
 """Per-rank bodies of the distributed checks, run on every rank of a process
-group by ``tests/test_torch_dist*.py`` (gloo, CPU) and ``chip_smoke.py``
-phases 12, 13 and 14 (NCCL or gloo on the card):
+group by ``tests/test_torch_dist*.py`` and ``tests/test_torch_entry.py``
+(gloo, CPU) and ``chip_smoke.py`` phases 12-15 (NCCL or gloo on the
+card):
 
     from hpclinalg_torch.parallel.launch import run_ranks
     ranks = run_ranks("hpclinalg_torch.tools.dist_checks:on_rank", 4,
@@ -1379,6 +1380,93 @@ def assembly(be, k: int = 1000, m: int = 10_000, seed: int = 30,
     return {f"asm.{key}": _np(v) for key, v in out.items()}
 
 
+# -- the raw CG step (hpclinalg_torch.entry): tests, tools/cg_graph.py and
+# chip_smoke.py phase 15 --
+
+def raw_steps(step, args, steps: int, graphed: bool) -> dict:
+    """``steps`` eager steps of ``step`` (``entry.cg_step_fn``) chained from
+    ``args``, the launch counters set to 0 just before them and read just
+    after everything below: {"out": the last (x, r, p), "launches": {kernel:
+    count}, and "graph" with "capture_s" or "refused"}. ``graphed``: the
+    step is also captured (``entry.capture``, ``capture_s`` seconds) and
+    replayed ``steps`` times from ``args``, which must equal the eager
+    steps bit for bit (they launch the same kernels in the same order; a
+    check that raises); else ``capture`` must refuse the step (CPU
+    tensors, a gloo group) with ValueError, whose message is
+    ``refused``."""
+    from ..entry import capture
+
+    reset_launch_counts()
+    out = args
+    for _ in range(steps):
+        out = step(*out)
+    res = {"out": out}
+    if graphed:
+        t0 = time.perf_counter()
+        graph = capture(step, args)
+        torch.cuda.synchronize()
+        res["capture_s"] = time.perf_counter() - t0
+        rep = args
+        for _ in range(steps):
+            rep = graph(*rep)
+        if not all(torch.equal(a, b) for a, b in zip(out, rep)):
+            raise AssertionError(f"{steps} replays of the captured step "
+                                 "differ from the eager steps")
+        res["graph"] = graph
+    else:
+        try:
+            capture(step, args)
+        except ValueError as e:
+            res["refused"] = str(e)
+        else:
+            raise AssertionError(f"capture took a step on {args[0].device}")
+    res["launches"] = launch_counts()
+    return res
+
+
+def entry_steps(be, k: int = 16, steps: int = 20, seed: int = 5,
+                dtypes: tuple = ("float64", "float32"), graphed: bool = False,
+                timed: bool = False) -> dict:
+    """``entry.cg_step_fn`` on laplace2d(k) in each of ``dtypes``: ``steps``
+    raw steps from x = 0, r = p = b (seeded standard normals) through
+    ``raw_steps`` (``graphed``: also captured and replayed, bit for bit;
+    else ``capture`` must refuse, ``<dtype>.refused``), their x, r and p
+    (``<dtype>.{x,r,p}.local``), the engine and the launches
+    (``launches.<dtype>.*``). ``timed`` (a CUDA device): the wall and host
+    time a step of the eager step and, graphed, of the replay
+    (``timing.chain_ms``)."""
+    import hpclinalg_torch as ht
+    from ..entry import cg_step_fn
+    from .timing import chain_ms
+
+    out = {}
+    bh = np.random.default_rng(seed).standard_normal(k * k)
+    for dt in dtypes:
+        bd = be.with_dtype(dt)
+        A = ht.DistSparseMatrix.from_scipy(laplace2d(k), bd)
+        step, x0 = cg_step_fn(A, bd)
+        b = ht.DistVector.from_global(bh, bd)
+        args = (x0.data, b.data, b.data)
+        res = raw_steps(step, args, steps, graphed)
+        out.update({f"{dt}.{v}.local": t for v, t in zip("xrp", res["out"])})
+        out[f"{dt}.engine"] = step.engine
+        if graphed:
+            out[f"{dt}.graphed_equal"] = True
+        else:
+            out[f"{dt}.refused"] = res["refused"]
+        out.update({f"launches.{dt}.{c}": v
+                    for c, v in res["launches"].items()})
+        if timed:
+            runs = {"eager": (step, args)}
+            if graphed:
+                runs["graphed"] = (res["graph"],
+                                   tuple(a.clone() for a in args))
+            for name, t in chain_ms(runs).items():
+                out[f"time.{dt}.{name}_step_ms"] = t["step_ms"]
+                out[f"time.{dt}.{name}_host_ms"] = t["host_ms"]
+    return {f"entry.{k}": _np(v) for k, v in out.items()}
+
+
 def host_profile(fn, calls: int = 200, top: int = 12) -> str:
     """Where the host time of ``fn`` goes, over ``calls`` calls queued
     without a wait, as JSON: the ``top`` Python functions by their own
@@ -1438,7 +1526,7 @@ BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
           "utilities": utilities, "group_ops": group_ops, "card": card,
           "solver_checks": solver_checks, "chol_failure": chol_failure,
           "solvers": solvers, "assembly_checks": assembly_checks,
-          "assembly": assembly}
+          "assembly": assembly, "entry_steps": entry_steps}
 
 
 def on_rank(device: str, body: str, kwargs: dict) -> dict:

@@ -6,9 +6,15 @@ over an n-device mesh.
     python -m hpclinalg_torch.tools.dryrun [n]      # n NCCL ranks, a card each
     python -m hpclinalg_torch.tools.dryrun [n] --device cpu   # n gloo ranks
 
-It runs what the port runs on a group: 20 CG steps on laplace2d(16) in
-f32 (the halo exchange, the SpMV, the all-reduced dots), with the residual
-below a tenth of its start, then a host ``ldlt`` solve (rank 0 factors)
+It runs what the port runs on a group: 20 steps of the JAX function's CG
+step, ``entry.cg_step_fn`` on laplace2d(16) in f32 over the raw shards
+(the halo exchange, the SpMV, the all-reduced dots), run eagerly and, on
+NCCL, also captured as a CUDA graph and replayed (``entry.capture``, the
+counterpart of its ``jax.jit``; at two ranks or more the exchange's
+``all_to_all_single`` is in the graph), the replays equal to the eager
+steps bit for bit (``dist_checks.raw_steps``; on gloo ``capture`` must
+refuse the group), with the residual below a tenth of
+its start, then a host ``ldlt`` solve (rank 0 factors)
 with its residual below 1e-5 in f32 and 1e-10 in f64, then the JAX
 function's device part over the group in f32: ``ht.ldlt(A,
 method="device")`` with local subtrees mapped to the ranks and its
@@ -51,8 +57,11 @@ def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
         ranks = run_ranks("hpclinalg_torch.tools.dryrun:_on_rank", n_devices,
                           backend=backend, device=device, args=(n_devices,))
         return ranks[0]
+    import torch.distributed as dist
+
     import hpclinalg_torch as ht
-    from .ell_ab import cg
+    from ..entry import cg_step_fn
+    from .dist_checks import raw_steps
 
     be = ht.backend_dist(dtype=np.float32, group=comm,
                          device="cpu" if device == "cpu" else None)
@@ -61,7 +70,10 @@ def dryrun_multichip(n_devices: int, comm=None, device: str = "cuda",
     L = laplace2d(16)                        # n = 256 over every rank
     A = ht.DistSparseMatrix.from_scipy(L, be)
     b = ht.DistVector.from_global(np.ones(L.shape[0]), be)
-    x, r = cg(A, b, 20)
+    step, x0 = cg_step_fn(A, be)
+    x, r, _ = raw_steps(step, (x0.data, b.data, b.data), 20,
+                        graphed=dist.get_backend(comm) == "nccl")["out"]
+    x, r = (ht.DistVector(t, x0.partition, be) for t in (x, r))
     rn0, rn = float(b.norm()), float(r.norm())
     if not (np.isfinite(x.to_numpy()).all() and rn < 0.1 * rn0):
         raise AssertionError(f"CG did not converge: {rn} vs {rn0}")

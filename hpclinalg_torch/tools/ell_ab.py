@@ -45,11 +45,11 @@ import torch
 if __package__:
     from .matrices import (banded_design, laplace2d, power_law, random_8,
                            random_cols, wide_span)
-    from .timing import Timer, card, require_cuda
+    from .timing import Timer, card, chain_ms, require_cuda
 else:       # run as a file: the package measured is PYTHONPATH's
     from matrices import (banded_design, laplace2d, power_law, random_8,
                           random_cols, wide_span)
-    from timing import Timer, card, require_cuda
+    from timing import Timer, card, chain_ms, require_cuda
 
 REPS = 20
 SEED = 0            # the seeds of chip_smoke.py's matrices
@@ -65,38 +65,33 @@ KP = (64, 8, 4096)              # the k-payload probe's k, F and tiles
 CG_STEPS, CG_RUNS, MATVECS = 50, 5, 200
 
 
+def cg_step(A, x, r, p):
+    """One CG iteration with the port's public API: (x, r, p) -> the next
+    three DistVectors."""
+    Ap = A @ p
+    rr = r.dot(r)
+    alpha = rr / p.dot(Ap)
+    x = x + alpha * p
+    r2 = r - alpha * Ap
+    return x, r2, r2 + (r2.dot(r2) / rr) * p
+
+
 def cg(A, b, steps):
     """``steps`` CG iterations from x = 0 with the port's public API;
     returns (x, r)."""
-    x = type(b).zeros(b.n, b.backend)
-    r, p = b, b
+    x, r, p = type(b).zeros(b.n, b.backend), b, b
     for _ in range(steps):
-        Ap = A @ p
-        rr = r.dot(r)
-        alpha = rr / p.dot(Ap)
-        x = x + alpha * p
-        r2 = r - alpha * Ap
-        p = r2 + (r2.dot(r2) / rr) * p
-        r = r2
+        x, r, p = cg_step(A, x, r, p)
     return x, r
 
 
 def cg_step_ms(A, b) -> dict:
-    """Median over CG_RUNS runs of CG_STEPS steps: the wall time a step by
-    CUDA events and the host's enqueue time a step, in ms."""
-    cg(A, b, 3)
-    wall, host = [], []
-    for _ in range(CG_RUNS):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0.record()
-        cg(A, b, CG_STEPS)
-        host.append((time.perf_counter() - t0) * 1e3 / CG_STEPS)
-        ev1.record()
-        torch.cuda.synchronize()
-        wall.append(ev0.elapsed_time(ev1) / CG_STEPS)
+    """Median over CG_RUNS runs of CG_STEPS steps from x = 0: the wall time
+    a step by CUDA events and the host's enqueue time a step, in ms
+    (``timing.chain_ms``)."""
+    x0 = type(b).zeros(b.n, b.backend)
+    t = chain_ms({"cg": (lambda x, r, p: cg_step(A, x, r, p), (x0, b, b))},
+                 CG_STEPS, CG_RUNS)["cg"]
     mv = []
     for _ in range(CG_RUNS):
         torch.cuda.synchronize()
@@ -105,8 +100,7 @@ def cg_step_ms(A, b) -> dict:
             A @ b
         mv.append((time.perf_counter() - t0) * 1e6 / MATVECS)
         torch.cuda.synchronize()
-    return {"step_ms": float(np.median(wall)),
-            "host_enqueue_ms": float(np.median(host)),
+    return {"step_ms": t["step_ms"], "host_enqueue_ms": t["host_ms"],
             "matvec_host_us": float(np.median(mv))}
 
 
@@ -124,6 +118,18 @@ def device_events(body):
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(events) -> float:
+    """The union of the events' device intervals (``device_events``), in
+    µs."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def kernel_times(fn, flush, skip) -> dict:

@@ -6,6 +6,7 @@ Nothing here runs at import time; every function needs a CUDA device.
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -72,6 +73,36 @@ class Timer:
         b = [self.ms(f, cold=cold) for f in reversed(live)][::-1]
         it = iter(min(x, y) for x, y in zip(a, b))
         return [None if f is None else next(it) for f in fns]
+
+
+def chain_ms(steps_by_name: dict, steps: int = 50, runs: int = 5) -> dict:
+    """For each ``name: (step, args)``: ``step`` chained ``steps`` times
+    from ``args`` (``args = step(*args)``), ``runs`` times, the names
+    taken in turns (forward, then backward, and so on), each step run
+    once first: {name: {"step_ms": the median wall time a step by CUDA
+    events, "host_ms": the median host time a step spent enqueueing}}."""
+    for step, args in steps_by_name.values():
+        step(*args)
+    wall = {name: [] for name in steps_by_name}
+    host = {name: [] for name in steps_by_name}
+    names = list(steps_by_name)
+    for run in range(runs):
+        for name in (names if run % 2 == 0 else names[::-1]):
+            step, args = steps_by_name[name]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(steps):
+                args = step(*args)
+            host[name].append((time.perf_counter() - t0) * 1e3 / steps)
+            b.record()
+            torch.cuda.synchronize()
+            wall[name].append(a.elapsed_time(b) / steps)
+    return {name: {"step_ms": float(np.median(wall[name])),
+                   "host_ms": float(np.median(host[name]))}
+            for name in names}
 
 
 # The H100 SXM's data-sheet peaks (NVIDIA): HBM3 bytes/s and the FP64 and

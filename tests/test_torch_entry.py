@@ -1,0 +1,261 @@
+"""The compiled CG step of the port (``hpclinalg_torch/entry.py``) against
+the JAX package's entry point (``__graft_entry__``) on the CPU.
+
+``cg_step_fn``'s raw step goes against ``_cg_step_fn`` jitted on the CPU
+mesh, after 1, 5 and 20 steps, at the shard counts of ``conftest.py``, in
+f64 (rtol 1e-10) and f32 (rtol 1e-5, CG's rounding in another summation
+order), on laplace2d(16) (the DIA engine, K1's plain version) and on a
+seeded SPD matrix off the DIA path (a permuted laplace2d(24) with a small
+arrow row, whose 576 entries overflow the ELL width into the COO tail)
+on the densify, ELL, resident and segment engines through their plain
+versions, where the JAX step takes its segment sum. The raw step also
+goes against the public-API CG (``tools/ell_ab.cg``, rtol 1e-12);
+``entry(device="cpu")`` against the JAX ``entry()``; and on 2 and 4 gloo
+ranks (``dist_checks.entry_steps``) every rank's 20 raw steps against the
+stacked rows and the JAX step, with ``capture`` refusing the gloo group.
+Tolerances are relative to the largest entry of the reference. (In f32
+the two steps' rounding, in other summation orders, grows in r as CG
+shrinks it: after 20 steps on a permuted laplace2d(16) off the DIA path
+it reached 1.2e-5 of max |r|; the off-DIA matrix is 24² so that the
+residual stays near 3 % of b, where it is 3e-6.)
+"""
+
+from functools import lru_cache
+
+import jax
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import hpclinalg as hl
+import hpclinalg_torch as ht
+from __graft_entry__ import _cg_step_fn
+from __graft_entry__ import entry as jax_entry
+from hpclinalg_torch import entry as te
+from hpclinalg_torch.ops import spmv as tspmv
+from hpclinalg_torch.parallel.launch import run_ranks
+from hpclinalg_torch.tools import dist_checks as dc
+from hpclinalg_torch.tools.ell_ab import cg
+from hpclinalg_torch.tools.matrices import laplace2d
+
+torch.set_num_threads(1)
+
+SHARDS = (1, 4, 8)          # conftest.CONFIGS' shard counts
+STEPS = (1, 5, 20)
+DTYPES = (np.float64, np.float32)
+RTOL = {np.float64: 1e-10, np.float32: 1e-5}
+K = 16                      # laplace2d(K); entry_steps' default too
+SPD_K = 24                  # the off-DIA matrix: a permuted laplace2d(SPD_K)
+SEED = 5                    # b's seed, as in entry_steps
+DEADLINE_S = 120
+# each engine and the ops/spmv.py limits its plan is built under; the
+# segment engine is the fallback of a plan with no ELL layout
+ENGINES = {"dia": {}, "densify": {}, "ell": {"DENSE_MAX_ELEMS": 0},
+           "resident": {"DENSE_MAX_ELEMS": 0, "MIN_NNZ": 0,
+                        "MAX_ELL_BLOWUP": 16.0},
+           "segment": {"DENSE_MAX_ELEMS": 0}}
+
+
+def close(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.max(np.abs(got - want))
+    assert err <= rtol * np.max(np.abs(want)), (err, rtol)
+
+
+@lru_cache(maxsize=None)
+def spd_off_dia(seed=7):
+    """A permuted laplace2d(SPD_K) plus a symmetric arrow of 10⁻³-scaled
+    normals in row and column 0: SPD (the arrow's norm is under the
+    Laplacian's least eigenvalue), not a few diagonals, and its first row
+    longer than the ELL width."""
+    rng = np.random.default_rng(seed)
+    n = SPD_K * SPD_K
+    q = rng.permutation(n)
+    arrow = sp.csr_matrix((1e-3 * rng.standard_normal(n),
+                           (np.zeros(n, np.int64), np.arange(n))),
+                          shape=(n, n))
+    return (laplace2d(SPD_K)[q][:, q] + arrow + arrow.T).tocsr()
+
+
+def matrix(engine):
+    return laplace2d(K) if engine == "dia" else spd_off_dia()
+
+
+def rhs(n):
+    return np.random.default_rng(SEED).standard_normal(n)
+
+
+@lru_cache(maxsize=None)
+def jax_iterates(dtype, S, dia):
+    """(x, r, p) after each of 20 steps of the jitted JAX step."""
+    be = hl.backend_auto(nshards=S, dtype=dtype)
+    M = laplace2d(K) if dia else spd_off_dia()
+    Aj = hl.DistSparseMatrix.from_scipy(M, be, dtype=dtype)
+    bj = hl.DistVector.from_global(rhs(M.shape[0]), be, dtype=dtype)
+    step, x0 = _cg_step_fn(Aj, be)
+    step = jax.jit(step)
+    out, args = [], (x0.data, bj.data, bj.data)
+    for _ in range(max(STEPS)):
+        args = step(*args)
+        out.append(tuple(np.asarray(a) for a in args))
+    return out
+
+
+def port_step(dtype, S, engine):
+    """(cg_step, x0, b) on the CPU with the plan built under ``engine``'s
+    limits (the plan cache is cleared before and after, so no other test
+    finds a plan built under lowered limits)."""
+    be = ht.backend_auto(S, dtype=dtype, device="cpu")
+    M = matrix(engine)
+    no_ell = {"_build_ell": lambda self, A: None} if engine == "segment" \
+        else {}
+    ht.clear_plan_cache("vector_plan")
+    try:
+        with dc.patched(tspmv, **ENGINES[engine]), \
+                dc.patched(tspmv.SpMVPlan, **no_ell):
+            A = ht.DistSparseMatrix.from_scipy(M, be, dtype=dtype)
+            step, x0 = te.cg_step_fn(A, be)
+    finally:
+        ht.clear_plan_cache("vector_plan")
+    assert step.engine == engine
+    assert (step.plan.offsets is not None) == (engine == "dia")
+    if engine in ("ell", "resident"):
+        assert step.plan.ell_Tpad > 0, "the arrow row has no COO tail"
+    return step, x0, A, ht.DistVector.from_global(rhs(M.shape[0]), be,
+                                                  dtype=dtype)
+
+
+@lru_cache(maxsize=None)
+def port_iterates(dtype, S, engine):
+    step, x0, _, b = port_step(dtype, S, engine)
+    out, args = [], (x0.data, b.data, b.data)
+    for _ in range(max(STEPS)):
+        args = step(*args)
+        out.append(tuple(a.numpy().copy() for a in args))
+    return out
+
+
+@pytest.mark.parametrize("steps", STEPS)
+@pytest.mark.parametrize("engine", list(ENGINES))
+@pytest.mark.parametrize("S", SHARDS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f64", "f32"))
+def test_raw_step_against_jax(dtype, S, engine, steps):
+    got = port_iterates(dtype, S, engine)[steps - 1]
+    want = jax_iterates(dtype, S, engine == "dia")[steps - 1]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        close(g, w, RTOL[dtype])
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+@pytest.mark.parametrize("S", SHARDS)
+def test_raw_step_against_public_cg(S, engine):
+    step, x0, A, b = port_step(np.float64, S, engine)
+    x, r, p = x0.data, b.data, b.data
+    for _ in range(20):
+        x, r, p = step(x, r, p)
+    xa, ra = cg(A, b, 20)
+    close(x, xa.data, 1e-12)
+    close(r, ra.data, 1e-12)
+
+
+def test_raw_step_keeps_its_arguments_and_the_padding():
+    # 576 rows on 5 shards: each holds 115 or 116 in 120 slots
+    step, x0, _, b = port_step(np.float64, 5, "ell")
+    assert b.L * 5 > b.n
+    args = (x0.data.clone(), b.data.clone(), b.data.clone())
+    outs = step(*args)
+    assert all(torch.equal(a, c) for a, c in zip(args, (x0.data, b.data,
+                                                          b.data)))
+    mask = b.mask()
+    for o in outs:
+        assert not bool(o[~mask].any())
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_raw_step_in_place_equals_the_new_tensors(engine):
+    """The form ``capture`` records: the results written into x, r and p
+    themselves, bit for bit the tensors the step returns."""
+    step, x0, _, b = port_step(np.float64, 4, engine)
+    new = (x0.data, b.data, b.data)
+    own = tuple(t.clone() for t in new)
+    for _ in range(5):
+        new = step(*new)
+        assert all(a is c for a, c in zip(step(*own, out=own), own))
+        for a, c in zip(new, own):
+            assert torch.equal(a, c)
+
+
+def test_entry_on_the_cpu_equals_jax_entry():
+    fn, args = te.entry(device="cpu")
+    jfn, jargs = jax_entry()
+    assert [tuple(a.shape) for a in args] == [a.shape for a in jargs] \
+        == [(1, 4096)] * 3
+    assert all(a.dtype == torch.float32 for a in args)
+    assert all(a.dtype == np.float32 for a in jargs)
+    for a, j in zip(args, jargs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(j))
+    assert fn.engine == "dia"
+    for g, w in zip(fn(*args), jax.jit(jfn)(*jargs)):
+        close(g.numpy(), np.asarray(w), 1e-5)
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.entry()
+    fn, args = te.entry(device="cpu")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        te.capture(fn, args)
+
+
+def test_capture_refuses_what_is_not_a_cuda_tensor():
+    fn, args = te.entry(device="cpu")
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        te.capture(fn, ())
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        te.capture(fn, tuple(a.numpy() for a in args))
+
+
+class World:
+    def __init__(self, S):
+        self.S = S
+        self.ranks = run_ranks("hpclinalg_torch.tools.dist_checks:on_rank", S,
+                               backend="gloo", device="cpu",
+                               deadline_s=DEADLINE_S,
+                               args=("entry_steps", {}))
+        self.stacked = dc.entry_steps(ht.backend_auto(S, device="cpu"))
+
+    def rows(self, key):
+        return np.concatenate([r[key] for r in self.ranks])
+
+
+@pytest.fixture(scope="module", params=(2, 4), ids=("world2", "world4"))
+def world(request):
+    return World(request.param)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=("f64", "f32"))
+def test_rank_steps_equal_the_stacked_rows_and_jax(world, dtype):
+    tag = np.dtype(dtype).name
+    want = jax_iterates(dtype, world.S, True)[-1]
+    for i, v in enumerate("xrp"):
+        got = world.rows(f"entry.{tag}.{v}.local")
+        close(got, world.stacked[f"entry.{tag}.{v}.local"], RTOL[dtype])
+        close(got, want[i], RTOL[dtype])
+
+
+def test_capture_refuses_the_gloo_group(world):
+    for out in world.ranks:
+        for tag in ("float64", "float32"):
+            assert "gloo" in str(out[f"entry.{tag}.refused"])
+    assert "CUDA tensors" in str(world.stacked["entry.float64.refused"])
+
+
+def test_ranks_run_the_dia_engine_without_jax(world):
+    for r, out in enumerate(world.ranks):
+        assert int(out["meta.rank"]) == r and int(out["meta.nlocal"]) == 1
+        assert not bool(out["meta.jax"]) and not bool(out["meta.hpclinalg"])
+        assert str(out["entry.float64.engine"]) == "dia"
