@@ -41,12 +41,9 @@ from .ops.spmv import gathered, get_spmv_plan, local_spmv
 from .parallel import comm
 from .sparse import DistSparseMatrix
 from .tools.matrices import laplace2d
+from .utils import graphs
+from .utils.graphs import CapturedStep
 from .vector import DistVector
-
-
-# capture's calls of the step before it is captured: at least one, so that
-# the one-time work a capture cannot hold (below) is done outside it
-WARMUP = 3
 
 
 def cg_step_fn(Ad: DistSparseMatrix, be):
@@ -105,91 +102,32 @@ def entry(device=None):
     return cg_step, (x0.data, b.data, b.data)
 
 
-class CapturedStep:
-    """A step captured as a CUDA graph (``capture``). Calling it with
-    arguments shaped like the example copies each into the graph's static
-    input, or skips the copy where the argument is that tensor, replays
-    the graph and returns the static tensors, which then hold the step's
-    results: so ``x, r, p = step(x, r, p)`` replays with no copy. The next
-    call overwrites them; clone a result to keep it."""
-
-    def __init__(self, graph: torch.cuda.CUDAGraph, static: tuple):
-        self.graph = graph
-        self.static = static
-
-    def __call__(self, *args):
-        if len(args) != len(self.static):
-            raise TypeError(f"the step takes {len(self.static)} tensors, "
-                            f"got {len(args)}")
-        for s, a in zip(self.static, args):
-            if a is not s:
-                s.copy_(a)
-        self.graph.replay()
-        return self.static
-
-
-def _check_capturable(fn, args) -> None:
-    be = getattr(fn, "backend", None)
-    if be is not None and be.is_dist:
-        import torch.distributed as dist
-
-        transport = str(dist.get_backend(be.group))
-        if transport != "nccl":
-            raise ValueError(
-                f"capture: the step's process group runs over {transport}, "
-                "which stages CUDA tensors through the host and cannot be "
-                "captured in a CUDA graph; call the step itself (eager) on "
-                "such a group, or use NCCL")
-    if not args or any(not isinstance(a, torch.Tensor)
-                       or a.device.type != "cuda" for a in args):
-        raise ValueError(
-            "capture: a CUDA graph takes CUDA tensors, got "
-            f"{[str(getattr(a, 'device', type(a).__name__)) for a in args]}"
-            "; on the CPU call the step itself (eager)")
-    if any(a.device != args[0].device for a in args):
-        raise ValueError("capture: the arguments lie on several devices")
-
-
 def capture(fn, example_args) -> CapturedStep:
     """``fn`` captured once as a CUDA graph with a memory pool of its own:
-    the counterpart of ``jax.jit`` for a step whose shapes are fixed.
+    the counterpart of ``jax.jit`` for a step whose shapes are fixed
+    (``utils/graphs.CapturedStep``, whose calls check each argument's
+    shape, dtype and device and copy it into the graph's static input).
     ``fn(*args, out=out)`` must write its results into ``out``, tensors
     shaped like its arguments that may be those arguments, and return
     ``out`` (``cg_step_fn``'s ``cg_step`` does). The example arguments are
-    copied into static tensors; ``fn`` runs WARMUP times on a side
-    stream first, into scratch tensors, so that the work a capture cannot
-    hold happens outside it (the kernels' libraries load, the launchers'
-    one-time shared-memory opt-ins and occupancy queries run, the
-    exchange's and K3's tables and cuBLAS's workspace are built, a NCCL
-    communicator starts); then ``fn(*static, out=static)`` is captured:
-    each replay updates the static tensors in place. Raises ValueError on
-    CPU tensors, on a step over a group that is not NCCL or on a ``fn``
-    that does not return ``out``, and RuntimeError when the capture
-    fails: it never runs ``fn`` eagerly in the graph's place."""
+    copied into static tensors, ``fn(*static, out=static)`` runs once on
+    a side stream, so that the work a capture cannot hold happens outside
+    it (the kernels' libraries load, the launchers' one-time
+    shared-memory opt-ins and occupancy queries run, the exchange's and
+    K3's tables and cuBLAS's workspace are built, a NCCL communicator
+    starts), and is then captured: each replay updates the static tensors
+    in place. Raises ValueError on CPU tensors, on a step over a group
+    that is not NCCL or on a ``fn`` that does not return ``out``, and
+    RuntimeError when the capture fails: it never runs ``fn`` eagerly in
+    the graph's place."""
     args = tuple(example_args)
-    _check_capturable(fn, args)
-    dev = args[0].device
-    static = tuple(a.detach().clone() for a in args)
-    scratch = tuple(torch.empty_like(a) for a in static)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP):
-            outs = fn(*static, out=scratch)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    torch.cuda.synchronize(dev)
-    if len(outs) != len(scratch) or any(
-            o is not s for o, s in zip(outs, scratch)):
+    why = graphs.refusal(getattr(fn, "backend", None), args)
+    if why is not None:
+        raise ValueError(why)
+    step = CapturedStep(lambda *s: fn(*s, out=s), args)
+    out = step.out
+    if not isinstance(out, (tuple, list)) or len(out) != len(step.static) \
+            or any(o is not s for o, s in zip(out, step.static)):
         raise ValueError("capture: fn(*args, out=out) must write its results "
                          "into out and return it")
-    del outs, scratch
-    graph = torch.cuda.CUDAGraph()
-    try:
-        # thread_local: a NCCL watchdog thread's event queries stay legal
-        # while this thread captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            fn(*static, out=static)
-    except RuntimeError as e:
-        raise RuntimeError(f"capture: the step could not be captured as a "
-                           f"CUDA graph: {e}") from e
-    return CapturedStep(graph, static)
+    return step

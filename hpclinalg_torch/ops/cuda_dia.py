@@ -30,6 +30,8 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.graphs import count_launch
+
 # The H100's opt-in maximum of dynamic shared memory per block (227 KiB),
 # which K1's window and K3's staged x may fill whole (neither kernel has
 # static shared memory). A CPU-resident plan or model uses this constant so
@@ -303,7 +305,7 @@ def dia_spmv(dval: torch.Tensor, g: torch.Tensor, offsets, bias_lo: int,
                 g.stride(0), ctypes.byref(_c_layout(layout)), layout.threads,
                 int(kernel == "dia_vec"), layout.smem_bytes, stream_ptr(g))
     check(rc, "dia_spmv")
-    dia_spmv.launches += 1
+    count_launch(dia_spmv)
     dia_spmv.kernel = kernel
     return y
 

@@ -38,6 +38,8 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.graphs import count_launch
+
 PROBE_MAX_OFFSETS = 64
 STREAM_MAX_R = 8
 THREADS = 256   # dia_flat_spmv's and table_stream_scalar's block
@@ -234,7 +236,7 @@ def dia_flat_spmv(tbl: torch.Tensor, xp: torch.Tensor, offsets,
             (ctypes.c_int * O)(*offsets), int(bool(aligned)), THREADS,
             stream_ptr(tbl))
     check(rc, "dia_flat_spmv")
-    dia_flat_spmv.launches += 1
+    count_launch(dia_flat_spmv)
     return y
 
 
@@ -268,7 +270,7 @@ def table_stream(tbl: torch.Tensor, c: torch.Tensor, ntiles: int, TR: int,
             tile_stride, row_stride, float(scale), depth, THREADS, vec,
             stream_ptr(tbl))
     check(rc, "table_stream")
-    table_stream.launches += 1
+    count_launch(table_stream)
     return y
 
 

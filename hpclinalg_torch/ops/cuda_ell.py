@@ -39,6 +39,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.graphs import count_launch
 from .cuda_dia import KERNEL_DTYPES, pad_trunc
 
 THREADS = 256          # threads a block of the row kernels (kRowThreads)
@@ -300,7 +301,7 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
                 y.data_ptr(), S, Lrow, W, Tpad, gcols, g.stride(0), lanes,
                 vec, stream_ptr(g))
     check(rc, "ell_spmv")
-    ell_spmv.launches += 1
+    count_launch(ell_spmv)
     return y
 
 
@@ -333,7 +334,7 @@ def gather(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         rc = fn(x.data_ptr(), src.data_ptr(), xe.data_ptr(), S, D,
                 x.stride(0), stream_ptr(x))
     check(rc, "gather")
-    gather.launches += 1
+    count_launch(gather)
     return xe
 
 

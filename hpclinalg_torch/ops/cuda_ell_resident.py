@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.graphs import count_launch
 from .cuda_dia import H100_SMEM_CAP, KERNEL_DTYPES
 from .cuda_ell import ell_operands, ell_spmv_plain, on_cpu, rows_per_pass
 
@@ -214,7 +215,7 @@ def ell_resident_spmv(vals: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
                 y.data_ptr(), S, Lrow, W, Tpad, G, gcols, g.stride(0), lanes,
                 vec, tile, win_cap, aligned, stream_ptr(g))
     check(rc, "ell_resident_spmv")
-    ell_resident_spmv.launches += 1
+    count_launch(ell_resident_spmv)
     return y
 
 

@@ -29,6 +29,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.graphs import count_launch
 from .cuda_ell import check_index
 
 LANES = 128
@@ -152,7 +153,7 @@ def kpayload(src: torch.Tensor, idx: torch.Tensor, sel: torch.Tensor,
     rc = _lib().kpayload_f32(src.data_ptr(), idx.data_ptr(), sel.data_ptr(),
                              out.data_ptr(), ntiles, F, k, stream_ptr(src))
     check(rc, "kpayload")
-    kpayload.launches += 1
+    count_launch(kpayload)
     return out
 
 

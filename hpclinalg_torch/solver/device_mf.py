@@ -45,7 +45,13 @@ after the scatter. The extend-add's padding, which is most of its slots,
 adds masked zeros at spread in-range slots instead (``_ea_scatter``). So no
 device-side index is ever out of range.
 
-Eager PyTorch runs level by level: there is no fused factor program, no
+The engine's bodies run level by level in eager PyTorch. On the card a
+``DeviceFactorization`` captures them as CUDA graphs, the counterpart of
+the JAX engine's ``_factor_jit``, ``_prep_jit`` and ``_solve_jit``
+(``utils/graphs.py``): one graph holds the factorization, the inversion of
+its diagonal blocks and the reduction of its counts and growth
+(``_factor_program``), replayed by every ``refactorize``; one graph a
+right-hand-side width and transpose holds ``solve_prepped``. There is no
 compile cache and no RHS width bucketing, and the f32 engine's extended
 refinement carries its solution in f64 with an f64 copy of A for the
 residual (``DeviceFactorization._extended_refine``).
@@ -61,6 +67,7 @@ from ..backend import numpy_dtype, torch_dtype
 from ..config import round_up
 from ..ops.cuda_ell import check_index
 from ..parallel import comm
+from ..utils import graphs
 from . import symbolic
 from .ordering import amd_order
 
@@ -136,7 +143,9 @@ def proportional_map(sym: symbolic.SymbolicFactor, S: int) -> np.ndarray:
 
 def _clamp(d, eps):
     """Static-pivot perturbation: |d| < eps -> sign-preserving +-eps.
-    Returns the clamped pivots and how many were clamped."""
+    ``eps``: a 0-d tensor in d's real dtype (the JAX engine's
+    ``jnp.asarray(eps, dtype)``, which a graph reads at every replay) or a
+    float. Returns the clamped pivots and how many were clamped."""
     bad = torch.abs(d) < eps
     sign = (d.real >= 0).to(d.real.dtype) * 2 - 1
     safe = torch.where(bad, (sign * eps).to(d.dtype), d)
@@ -766,7 +775,6 @@ class DeviceMF:
                         [send[d][d], Mmax + np.flatnonzero(mm)])
                     recv[d][d] = np.concatenate([recv[d][d], tlocs[mm]])
         self.out_plan = ExchangePlan(backend, send, recv, padded_size(rp))
-        self._prep_cache = None
 
     # ------------------------------------------------------------------
     def _mine(self, arr: np.ndarray) -> np.ndarray:
@@ -862,17 +870,15 @@ class DeviceMF:
         return top_factors, npert, failed
 
     def factor(self, Avals, eps):
-        """Avals: (nnzA,) values in global CSR order on the device.
+        """Avals: (nnzA,) values in global CSR order on the device; eps: the
+        static-pivot threshold, a float or a 0-d tensor (taken as it is
+        when it is already one in the engine's real dtype on its device).
         Returns (local factors, top factors, (n_perturbed, failed) of this
         process's local fronts, (n_perturbed, failed) of the replicated top
-        tree), the counts 0-d device tensors."""
-        # new factors invalidate the prepped (inverted-block) solve cache;
-        # clearing it first also releases the old factor tensors before
-        # the new ones allocate
-        self._prep_cache = None
+        tree), the counts 0-d device tensors. Reads nothing on the host."""
         dt = self.dtype
         Av = torch.cat([Avals.to(dt), Avals.new_zeros(1, dtype=dt)])
-        eps = float(eps)
+        eps = torch.as_tensor(eps, dtype=dt.to_real(), device=self.device)
         upds = []          # per local level: (S, B, NR, NR)
         loc_factors = []
         npert = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -889,21 +895,17 @@ class DeviceMF:
         return loc_factors, top_factors, (npert, failed), (ptop, ftop)
 
     # ------------------------------------------------------------------
-    # solve: wave sweeps on INVERTED diagonal blocks (prep_solve), so that
+    # solve: wave sweeps on INVERTED diagonal blocks (invert), so that
     # every per-level triangular solve is one batched matmul with the
     # precomputed L11^-1 / U11^-1. Inversion happens ONCE per
-    # factorization; the flop count of (inv @ rhs) equals substitution.
+    # factorization (DeviceFactorization keeps the inverted factors); the
+    # flop count of (inv @ rhs) equals substitution.
     # ------------------------------------------------------------------
-    def prep_solve(self, factors):
-        """(loc, top, npert) -> solve-ready factors with diagonal blocks
-        inverted; cached per factors identity."""
-        hit = self._prep_cache
-        if hit is not None and hit[0] is factors:
-            return hit[1]
-        out = (([self._inv_fac(f) for f in factors[0]],
-                [self._inv_fac(f) for f in factors[1]]), factors[2])
-        self._prep_cache = (factors, out)
-        return out
+    def invert(self, loc_factors, top_factors):
+        """(loc, top) factors -> (loc, top) with every level's diagonal
+        blocks inverted (``_inv_fac``): what ``solve_prepped`` takes."""
+        return ([self._inv_fac(f) for f in loc_factors],
+                [self._inv_fac(f) for f in top_factors])
 
     def _inv_fac(self, fac):
         """Replace the triangular diagonal blocks of one level's factor
@@ -1013,22 +1015,30 @@ class DeviceMF:
 
         return xloc  # (S, SENT+1, k); out_plan scatters to natural order
 
+    def solve_prepped(self, prepped, b, tr: bool = False):
+        """b (S, Lrow, k) on ``self.row_partition`` -> the solution stacked
+        the same way, with ``prepped`` = ``invert``'s (loc, top) factors.
+        in_plan gathers the RHS into the per-shard compact spaces, the wave
+        solve runs on O(n/S + |top|) buffers, out_plan scatters the
+        solution back to natural row order. ``tr``: the transposed system
+        (LU). Reads nothing on the host."""
+        bloc = self.in_plan.apply(b.to(self.dtype))
+        return self.out_plan.apply(self._solve_impl(*prepped, bloc, tr))
+
     def solve_dist(self, factors, bstacked, transpose: bool = False):
         """Row-distributed solve: bstacked (S, Lrow[, k]) on
-        ``self.row_partition`` -> solution stacked the same way. in_plan
-        gathers the RHS into the per-shard compact spaces, the wave solve
-        runs on O(n/S + |top|) buffers, out_plan scatters the solution back
-        to natural row order."""
-        (loc, top), _ = self.prep_solve(factors)
+        ``self.row_partition`` -> solution stacked the same way, with
+        ``factors`` = ``factor``'s (loc, top, ...): ``solve_prepped`` on
+        the factors inverted here, for one call (``DeviceFactorization``
+        inverts once a factorization and keeps the result)."""
+        prepped = self.invert(factors[0], factors[1])
         b = bstacked
         squeeze = b.dim() == 2
         if squeeze:
             b = b[:, :, None]
-        bloc = self.in_plan.apply(b.to(self.dtype))
         # chol/ldl are symmetric: transpose == plain solve
         tr = bool(transpose) and self.kind == "lu"
-        xloc = self._solve_impl(loc, top, bloc, tr)
-        x = self.out_plan.apply(xloc)
+        x = self.solve_prepped(prepped, b, tr)
         return x[:, :, 0] if squeeze else x
 
     def solve(self, factors, b, transpose: bool = False):
@@ -1069,10 +1079,57 @@ def _leaves_amax(factors, like) -> torch.Tensor:
                         for x in leaves]).amax()
 
 
+def _pert_eps(Avals, real_dtype) -> torch.Tensor:
+    """The static-pivot threshold relative to the largest |value| (1 for a
+    zero matrix; no floor) as a 0-d tensor in ``real_dtype`` on the
+    values' device: the host engine's arithmetic in f64, rounded once to
+    ``real_dtype``, with no host read."""
+    f64 = torch.float64
+    anorm = torch.abs(Avals).amax().to(f64) if Avals.numel() \
+        else Avals.new_zeros((), dtype=f64)
+    return (_PERT_REL * torch.where(anorm > 0, anorm, 1.0)).to(real_dtype)
+
+
+def _factor_program(engine, Avals, eps):
+    """The work of one factorization, on the device with no host read (the
+    factor graph's body; the JAX engine's ``_factor_jit``, ``_prep_jit``,
+    ``_max_abs`` and ``_all_finite``): ``engine.factor``, the inversion of
+    every diagonal block (``engine.invert``) and the global counts and
+    growth. The local fronts' counts and growth are this process's: one
+    gather makes them the group's, and the replicated top tree's are added
+    once. Returns (local factors, top factors, the inverted (loc, top),
+    a (3,) f64 tensor [n_perturbed, failed Cholesky fronts, growth])."""
+    loc, top, (p_loc, f_loc), (p_top, f_top) = engine.factor(Avals, eps)
+    prepped = engine.invert(loc, top)
+    f64 = torch.float64
+    rows = comm.all_gather_rows(engine.backend, torch.stack(
+        [p_loc.to(f64), f_loc.to(f64), _leaves_amax(loc, p_loc)])[None])
+    stats = torch.stack(
+        [rows[:, 0].sum() + p_top, rows[:, 1].sum() + f_top,
+         torch.maximum(rows[:, 2].max(), _leaves_amax(top, p_loc))])
+    return loc, top, prepped, stats
+
+
 class DeviceFactorization:
     """Factorization interface over the DeviceMF engine (ref:
     MUMPSFactorization / CuDSSFactorizationMPI). The RHS and solution stay
-    on the device end to end: gather in, wave solves, scatter out."""
+    on the device end to end: gather in, wave solves, scatter out.
+
+    On the card the factorization is compiled as the JAX engine compiles
+    it: ``_factor_program`` is captured once as a CUDA graph over static
+    copies of the gathered values and eps (``utils/graphs.CapturedStep``)
+    and each ``refactorize`` copies the new values in and replays it; each
+    solve replays a graph of ``engine.solve_prepped`` captured at the first
+    solve of its RHS width and transpose (a new width captures a new
+    graph, as ``jax.jit`` retraces). The graphs and their memory pools
+    belong to the factorization, not to the engine that every
+    factorization of the pattern shares; ``finalize`` drops them. A solve
+    returns a tensor the caller owns. On a NCCL group the factor's cross
+    ``all_reduce`` and count gather and the solve's ``all_reduce`` are in
+    the graphs. On CPU tensors and on a gloo group (which stages CUDA
+    tensors through the host) the same bodies run eagerly: ``refusal``
+    says why (None when graphed). A capture that fails raises.
+    """
 
     def __init__(self, A, kind: str = "ldl", dtype=None):
         self.A = A
@@ -1086,6 +1143,9 @@ class DeviceFactorization:
         self.dtype = numpy_dtype(A.dtype if dtype is None else dtype)
         self.kind = kind
         self.engine = device_engine(A, kind, self.dtype)
+        self.refusal = graphs.refusal(self.backend, (A.nzval,))
+        self._factor_graph = None
+        self._solve_graphs = {}   # (RHS width, transposed) -> CapturedStep
         self._numeric(A)
 
     def _numeric(self, A):
@@ -1096,29 +1156,27 @@ class DeviceFactorization:
         Avals = allgather_full(A.nzval, nnzb, self.backend)  # (nnzA,) device
         # the norm of the gathered values: the same eps, and so the same
         # top pivots' clamp, in every rank of a group
-        anorm = float(torch.abs(Avals).max()) if Avals.numel() else 0.0
-        eps = _PERT_REL * (anorm if anorm > 0 else 1.0)  # relative, no floor
+        eps = _pert_eps(Avals, self.engine.dtype.to_real())
+        Avals = Avals.to(self.engine.dtype)
         # drop the previous factors BEFORE factoring: old + new + temps
-        # together may not fit the device
-        self.factors = None
-        self._A64 = None
-        loc, top, (p_loc, f_loc), (p_top, f_top) = \
-            self.engine.factor(Avals, eps)
+        # together may not fit the device (a replay rewrites them in place)
+        self.factors = self._prepped = self._A64 = None
+        if self.refusal is not None:
+            loc, top, self._prepped, stats = _factor_program(
+                self.engine, Avals, eps)
+        else:
+            if self._factor_graph is None:
+                eng = self.engine
+                self._factor_graph = graphs.CapturedStep(
+                    lambda a, e: _factor_program(eng, a, e), (Avals, eps))
+            loc, top, self._prepped, stats = self._factor_graph(Avals, eps)
         # growth monitor: the device engine has no numerical pivoting, so a
         # legal-but-tiny pivot shows up as large |L| growth; flag it and
         # escalate the solve to the full-budget extended refinement (the
-        # eps clamp alone only catches |pivot| < eps). The local fronts'
-        # counts and growth are this process's: one gather makes them the
-        # group's (the replicated top tree's are added once), and one host
-        # read takes the perturbation count, the failure count and the
-        # growth.
-        f64 = torch.float64
-        rows = comm.all_gather_rows(self.backend, torch.stack(
-            [p_loc.to(f64), f_loc.to(f64), _leaves_amax(loc, p_loc)])[None])
-        np_, nfail, g = torch.stack(
-            [rows[:, 0].sum() + p_top, rows[:, 1].sum() + f_top,
-             torch.maximum(rows[:, 2].max(), _leaves_amax(top, p_loc))]
-        ).tolist()
+        # eps clamp alone only catches |pivot| < eps). The one host read
+        # of a factorization: the perturbation count, the failure count
+        # and the growth.
+        np_, nfail, g = stats.tolist()
         self.factors = (loc, top, int(np_))
         self.n_perturbed = int(np_)
         # the reference reads the growth in f32
@@ -1147,6 +1205,27 @@ class DeviceFactorization:
         p = getattr(o, "partition", None)
         return p if p is not None else o.row_partition
 
+    def _solve_dist(self, b, transpose: bool):
+        """``engine.solve_dist`` on this factorization's inverted factors:
+        b (S, Lrow[, k]) in, the solution stacked the same way out, a
+        tensor the caller owns. On the card it replays the solve graph of
+        b's width and ``transpose``, captured at its first use."""
+        tr = bool(transpose) and self.kind == "lu"
+        squeeze = b.dim() == 2
+        b3 = (b[:, :, None] if squeeze else b).to(self.engine.dtype)
+        if self.refusal is not None:
+            x = self.engine.solve_prepped(self._prepped, b3, tr)
+        else:
+            key = (b3.shape[2], tr)
+            step = self._solve_graphs.get(key)
+            if step is None:
+                eng, prepped = self.engine, self._prepped
+                step = self._solve_graphs[key] = graphs.CapturedStep(
+                    lambda bb: eng.solve_prepped(prepped, bb, tr), (b3,))
+            # the graph rewrites its output at the next replay
+            x = step(b3).clone()
+        return x[:, :, 0] if squeeze else x
+
     def _refined_solve(self, Bd, transpose, refine, to_dist, extended=None):
         """Solve + capped early-stopping iterative refinement with device
         residuals through the distributed SpMV/SpMM: compensates
@@ -1166,8 +1245,7 @@ class DeviceFactorization:
         part = self.engine.row_partition
         if not np.array_equal(self._part_of(Bd), part):
             Bd = Bd.repartition(part)
-        Xs = self.engine.solve_dist(self.factors, Bd.data,
-                                    transpose=transpose)
+        Xs = self._solve_dist(Bd.data, transpose)
         Xd = to_dist(Xs)
         if not refine:
             return Xd
@@ -1188,8 +1266,7 @@ class DeviceFactorization:
             prev = rn
             if not np.array_equal(self._part_of(R), part):
                 R = R.repartition(part)
-            Xs = Xs + self.engine.solve_dist(self.factors, R.data,
-                                             transpose=transpose)
+            Xs = Xs + self._solve_dist(R.data, transpose)
             Xd = to_dist(Xs)
         return Xd
 
@@ -1228,9 +1305,8 @@ class DeviceFactorization:
             prev = rn
             if not np.array_equal(r.partition, part):
                 r = r.repartition(part)
-            x64 = x64 + self.engine.solve_dist(
-                self.factors, r.data.to(torch.float32),
-                transpose=transpose).to(torch.float64)
+            x64 = x64 + self._solve_dist(
+                r.data.to(torch.float32), transpose).to(torch.float64)
         return DistVector(x64, part, self.backend)
 
     def solve(self, b, transpose: bool = False, refine: int | None = None,
@@ -1298,6 +1374,8 @@ class DeviceFactorization:
         return Xd if is_dist else Xd.to_numpy()
 
     def finalize(self):
-        self.factors = None
-        self._A64 = None
-        self.engine._prep_cache = None
+        """Drops the factors and this factorization's graphs, with their
+        memory pools."""
+        self.factors = self._prepped = self._A64 = None
+        self._factor_graph = None
+        self._solve_graphs = {}

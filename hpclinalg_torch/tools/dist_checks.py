@@ -440,11 +440,13 @@ def plan_digest(eng) -> str:
 
 def _factor_stats(F, tag: str) -> dict:
     """A device factorization's global counts, its engine's owner set,
-    cross buffer and plan digest under ``tag``."""
+    cross buffer and plan digest under ``tag``, and why its factor and
+    solves run eagerly ("" when they are CUDA graphs)."""
     eng = F.engine
     return {f"{tag}.n_perturbed": F.n_perturbed, f"{tag}.growth": F.growth,
             f"{tag}.owners": np.unique(eng.owner[eng.owner >= 0]),
-            f"{tag}.cross": eng.CROSS, f"{tag}.digest": plan_digest(eng)}
+            f"{tag}.cross": eng.CROSS, f"{tag}.digest": plan_digest(eng),
+            f"{tag}.refusal": F.refusal or ""}
 
 
 def device_solvers(be, k: int = 10, seed: int = 12) -> dict:
@@ -1033,14 +1035,13 @@ def ridge(be, mats: dict, As: dict, lam: float,
     """chip_smoke.py phase 6's ridge path on this rank's shard: At =
     A.T.materialize() (the transpose exchange), C = At @ A (the pair
     SpGEMM), N = C.add_identity(λ), rhs = At @ b (K2), ``steps`` CG steps
-    on N (K3), ldlt(N).solve(rhs) (the host engine, rank 0 factors), A @ x
-    (K3); the refit A.with_values(1.5 A.nzval), whose products must reuse
-    every plan; laplace2d(k) + the random matrix (an addition across
-    patterns), diag and triu of laplace2d(k); and the c128 transpose of
-    A's values times (0.6 - 0.8i) and the c128 Helmholtz operator plus the
-    random c128 matrix (``As``: ``card``'s matrices, which hold the last
-    four). Returns (results, the matrices the caller times),
-    each result under ``ridge.``; ``check.ridge_*`` are this rank's
+    on N (K3) for x, A @ x (K3); the refit A.with_values(1.5 A.nzval),
+    whose products must reuse every plan; laplace2d(k) + the random
+    matrix (an addition across patterns), diag and triu of laplace2d(k);
+    and the c128 transpose of A's values times (0.6 - 0.8i) and the c128
+    Helmholtz operator plus the random c128 matrix (``As``: ``card``'s
+    matrices, which hold the last four). Returns (results, the matrices
+    the caller times), each result under ``ridge.``; ``check.ridge_*`` are this rank's
     checks against scipy (relative errors, the pattern)."""
     import hpclinalg_torch as ht
     from ..ops import spgemm as spgemm_mod
@@ -1054,13 +1055,14 @@ def ridge(be, mats: dict, As: dict, lam: float,
     N, out["time.add_identity_first_s"] = _first_s(
         be, lambda: C.add_identity(lam))
     rhs = At @ b
-    xk, _ = cg_steps(N, rhs, steps)
-    x = ht.ldlt(N).solve(rhs)
+    # N's condition number is near 3: the CG steps reach the direct
+    # solution (phase 6 holds them to ldlt(N)'s to 1e-11); the host ldlt
+    # on a group is card()'s solves
+    x, _ = cg_steps(N, rhs, steps)
     y = Ad @ x
     out.update({"ridge.At.local": At.nzval, "ridge.C.local": C.nzval,
                 "ridge.N.local": N.nzval, "ridge.rhs.local": rhs.data,
-                "ridge.cg.local": xk.data, "ridge.x.local": x.data,
-                "ridge.Ax.local": y.data,
+                "ridge.x.local": x.data, "ridge.Ax.local": y.data,
                 "ridge.spgemm.engine": spgemm_mod.engine(At, Ad),
                 "ridge.spgemm.nchunks":
                     spgemm_mod.get_spgemm_plan(At, Ad).nchunks})
@@ -1073,8 +1075,6 @@ def ridge(be, mats: dict, As: dict, lam: float,
         / np.abs(Nsc.data).max(),
         "check.ridge_solve_res": np.linalg.norm(Nsc @ xh - rh)
         / np.linalg.norm(rh),
-        "check.ridge_cg_rel_err": np.linalg.norm(xk.to_numpy() - xh)
-        / np.linalg.norm(xh),
         "check.ridge_Ax_rel_err": np.abs(y.to_numpy() - mats["design"] @ xh)
         .max() / np.abs(mats["design"] @ xh).max()})
     sizes = ht.cache_sizes()
@@ -1237,13 +1237,16 @@ def solvers(be, k: int = 512, k_small: int = 256,
     residuals against scipy (the ridge's through N's SpMM). On a CUDA
     device it then times the Cholesky's engine factor (CUDA events and the
     host's enqueue time), its solve, an ``all_reduce`` of a cross buffer
-    (events and host time), R = At @ Y and the multi-RHS solve."""
+    (events and host time), R = At @ Y and the multi-RHS solve, and where
+    the factorization is graphed (``refusal`` "": NCCL or stacked) its
+    factor graph's call and its solve graph's call (events and host
+    time)."""
     import warnings
 
     import hpclinalg_torch as ht
     from ..parallel import comm
     from ..parallel.mesh import allgather_full
-    from ..solver.device_mf import DeviceFactorization
+    from ..solver.device_mf import DeviceFactorization, _pert_eps
 
     t0 = time.perf_counter()
     ht.clear_plan_cache()
@@ -1346,6 +1349,17 @@ def solvers(be, k: int = 512, k_small: int = 256,
             "time.ridge_AtY_ms": events_ms(lambda: At @ Yd, reps=5, warm=1),
             "time.ridge_solve_matrix_ms": events_ms(
                 lambda: FN.solve_matrix(R), reps=3, warm=1)})
+        if F.refusal is None:
+            eps_t = _pert_eps(Avals, torch.float64)
+            out.update({
+                "time.chol_factor_graph_ms": events_ms(
+                    lambda: F._factor_graph(Avals, eps_t), reps=10),
+                "time.chol_factor_graph_host_ms": host_ms(
+                    lambda: F._factor_graph(Avals, eps_t), reps=10),
+                "time.chol_solve_graph_ms": events_ms(
+                    lambda: F._solve_dist(b.data, False), reps=10),
+                "time.chol_solve_graph_host_ms": host_ms(
+                    lambda: F._solve_dist(b.data, False), reps=10)})
     return {f"sol.{k}": _np(v) for k, v in out.items()}
 
 

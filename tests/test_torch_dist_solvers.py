@@ -297,6 +297,16 @@ def test_device_engines_run_on_every_rank(world):
         assert bool(r["dsol.chol.device"]) and bool(r["dsol.backslash.device"])
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_gloo_ranks_run_the_device_solver_eagerly(world, kind):
+    """A gloo group stages CUDA tensors through the host, so no rank
+    captures its factor and solves as CUDA graphs: each says why (the
+    transport), and the stacked CPU run says it holds no CUDA tensors."""
+    for r in world.ranks:
+        assert "gloo" in str(r[f"dsol.{kind}.refusal"])
+    assert "CUDA tensors" in str(world.stacked[f"dsol.{kind}.refusal"])
+
+
 def test_cholesky_of_an_indefinite_matrix_raises_in_every_rank(world):
     assert all(int(r["dsol.chol_failure.raised"]) == 1
                for r in world.ranks)

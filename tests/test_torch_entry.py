@@ -13,7 +13,11 @@ goes against the public-API CG (``tools/ell_ab.cg``, rtol 1e-12);
 ``entry(device="cpu")`` against the JAX ``entry()``; and on 2 and 4 gloo
 ranks (``dist_checks.entry_steps``) every rank's 20 raw steps against the
 stacked rows and the JAX step, with ``capture`` refusing the gloo group.
-Tolerances are relative to the largest entry of the reference. (In f32
+The captured step's calls (``utils/graphs.CapturedStep``) run on the CPU
+with a stand-in graph (``standin_graphs``) whose replay reruns the
+recorded call and writes its results into the tensors the record
+returned, in place, as a CUDA graph's replay does. Tolerances are
+relative to the largest entry of the reference. (In f32
 the two steps' rounding, in other summation orders, grows in r as CG
 shrinks it: after 20 steps on a permuted laplace2d(16) off the DIA path
 it reached 1.2e-5 of max |r|; the off-DIA matrix is 24² so that the
@@ -38,6 +42,7 @@ from hpclinalg_torch.parallel.launch import run_ranks
 from hpclinalg_torch.tools import dist_checks as dc
 from hpclinalg_torch.tools.ell_ab import cg
 from hpclinalg_torch.tools.matrices import laplace2d
+from hpclinalg_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -217,6 +222,159 @@ def test_capture_refuses_what_is_not_a_cuda_tensor():
         te.capture(fn, ())
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         te.capture(fn, tuple(a.numpy() for a in args))
+
+
+class StandInGraph:
+    """A CUDA graph's stand-in on the CPU. The record runs ``fn`` once, as
+    a capture runs its Python, and fills the floating tensors it returned
+    with NaN (a captured graph's outputs hold nothing before a replay);
+    ``replay`` reruns ``fn`` and writes its results into those tensors in
+    place."""
+
+    def __init__(self, fn):
+        self.fn, self.replays = fn, 0
+        self.out = fn()
+        for t in _tensors(self.out):
+            if t.is_floating_point() or t.is_complex():
+                t.fill_(float("nan"))
+
+    def replay(self):
+        # a replay runs no wrapper: each kernel's count is the
+        # CapturedStep's, held at the record
+        self.replays += 1
+        held, graphs._held = graphs._held, {}
+        try:
+            outs = self.fn()
+        finally:
+            graphs._held = held
+        for dst, src in zip(_tensors(self.out), _tensors(outs)):
+            if dst is not src:
+                dst.copy_(src)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _tensors(x)]
+
+
+def standin_graphs(monkeypatch) -> list:
+    """``utils/graphs``' recording seam (``warm_up``, ``record``) and its
+    CUDA check patched for the CPU: returns the list that every record
+    appends its StandInGraph to."""
+    made = []
+
+    def record(fn, device):
+        made.append(StandInGraph(fn))
+        return made[-1], made[-1].out, {"capture_s": 0.0,
+                                        "instantiate_s": 0.0}
+
+    def warm_up(fn, device):
+        return fn()
+
+    monkeypatch.setattr(graphs, "record", record)
+    monkeypatch.setattr(graphs, "warm_up", warm_up)
+    monkeypatch.setattr(graphs, "_device_refusal", lambda tensors: None)
+    return made
+
+
+def captured_entry(monkeypatch):
+    """(fn, args, step): ``entry(device="cpu")``'s step, its arguments and
+    the step captured over a stand-in graph, called once on the arguments
+    so that its static tensors hold the first step's results."""
+    made = standin_graphs(monkeypatch)
+    fn, args = te.entry(device="cpu")
+    step = te.capture(fn, args)
+    assert isinstance(step, te.CapturedStep) and made == [step.graph]
+    out = step(*args)
+    assert all(o is s for o, s in zip(out, step.static))
+    for a, b in zip(out, fn(*args)):
+        assert torch.equal(a, b)
+    return fn, args, step
+
+
+def test_captured_step_takes_permuted_static_tensors(monkeypatch):
+    """``step(r, x, p)`` on the step's own static tensors: each argument
+    shares storage with the static tensor of another position, so the
+    copies must not overwrite what a later copy reads."""
+    fn, _, step = captured_entry(monkeypatch)
+    x, r, p = step.static
+    want = fn(r.clone(), x.clone(), p.clone())
+    got = step(r, x, p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # a view of another position's static tensor, and a repeated argument
+    x, r, p = step.static
+    want = fn(r.clone(), r.clone(), x.clone())
+    got = step(r[:], r, x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ("shape", "dtype", "device", "type"))
+def test_captured_step_refuses_another_shape_or_dtype(monkeypatch, bad):
+    _, args, step = captured_entry(monkeypatch)
+    x, r, p = args
+    wrong = {"shape": torch.zeros((1, 1), dtype=r.dtype),
+             "dtype": r.to(torch.float64),
+             "device": torch.zeros(r.shape, dtype=r.dtype, device="meta"),
+             "type": r.numpy()}[bad]
+    replays = step.graph.replays
+    with pytest.raises(ValueError, match="argument 1: the step was captured"):
+        step(x, wrong, p)
+    assert step.graph.replays == replays
+
+
+def test_captured_step_chained_on_its_outputs_copies_nothing(monkeypatch):
+    """``x, r, p = step(x, r, p)`` on the step's own outputs replays with
+    no copy and no clone: the step writes its results into its inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    fn, args, step = captured_entry(monkeypatch)
+    want = args
+    for _ in range(3):
+        want = fn(*want)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    step.graph.fn = lambda: step.static      # a replay that runs no op
+    x, r, p = step(*args)
+    step.graph.fn = lambda: fn(*step.static, out=step.static)
+    for _ in range(3):
+        x, r, p = step(x, r, p)
+    for a, b in zip((x, r, p), want):
+        assert torch.equal(a, b)
+    step.graph.fn = lambda: step.static
+    ops = Ops()
+    with ops:
+        out = step(x, r, p)
+    assert out is step.out and ops.names == [], ops.names
+
+
+def test_captured_step_counts_the_launches_that_ran(monkeypatch):
+    """A wrapper's count (``graphs.count_launch``) is the number of times
+    its kernel ran: the warm-up's launch counts at once, the capture's is
+    held for the graph and added at every replay."""
+    standin_graphs(monkeypatch)
+
+    def kernel(t):
+        graphs.count_launch(kernel)
+        return t * 2
+
+    kernel.launches = 0
+    step = graphs.CapturedStep(lambda t: kernel(kernel(t)), (torch.ones(3),))
+    assert kernel.launches == 2 and step.held == {kernel: 2}
+    for _ in range(3):
+        out = step(torch.ones(3))
+    assert kernel.launches == 8 and torch.equal(out, torch.full((3,), 4.0))
+    assert graphs._held is None
 
 
 class World:
