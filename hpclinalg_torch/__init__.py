@@ -39,7 +39,8 @@ from .solver.api import BackslashCache, Factorization, Symmetric, ldlt, lu, solv
 from .utils.convert import (clear_solver_caches, comm_rank, comm_size,
                             from_reference, to_backend)
 from .utils.io import io0, show
-from .utils.profiling import annotate, profile_trace
+from .utils.profiling import (annotate, profile_trace, span,
+                              trace_report, tracing)
 from .utils.warmup import warmup
 
 __all__ = [
@@ -56,6 +57,6 @@ __all__ = [
     "blockdiag", "cat", "cat_sparse", "hcat_sparse", "vcat_sparse",
     "cat_dense", "hcat_dense", "vcat_dense", "vcat_vectors", "hcat_vectors",
     "map_rows", "vertex_indices", "io0", "show", "warmup", "profile_trace",
-    "annotate", "to_backend", "comm_rank", "comm_size",
-    "clear_solver_caches", "from_reference",
+    "annotate", "span", "tracing", "trace_report", "to_backend",
+    "comm_rank", "comm_size", "clear_solver_caches", "from_reference",
 ]

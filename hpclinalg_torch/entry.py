@@ -43,6 +43,7 @@ from .sparse import DistSparseMatrix
 from .tools.matrices import laplace2d
 from .utils import graphs
 from .utils.graphs import CapturedStep
+from .utils.profiling import span
 from .vector import DistVector
 
 
@@ -68,7 +69,8 @@ def cg_step_fn(Ad: DistSparseMatrix, be):
 
     # one product here (on every rank of a group, as the step) builds the
     # engine's value tables and K3's windows, cached on A and its plan
-    spmv(x0.data)
+    with span("plan.values"):
+        spmv(x0.data)
 
     def vdot(a, b):
         return comm.all_reduce(be, torch.vdot(a.reshape(-1), b.reshape(-1)))
@@ -124,7 +126,7 @@ def capture(fn, example_args) -> CapturedStep:
     why = graphs.refusal(getattr(fn, "backend", None), args)
     if why is not None:
         raise ValueError(why)
-    step = CapturedStep(lambda *s: fn(*s, out=s), args)
+    step = CapturedStep(lambda *s: fn(*s, out=s), args, name="cg_step")
     out = step.out
     if not isinstance(out, (tuple, list)) or len(out) != len(step.static) \
             or any(o is not s for o, s in zip(out, step.static)):

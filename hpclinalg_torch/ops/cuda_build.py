@@ -9,13 +9,14 @@ machine without nvcc.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import time
 from functools import lru_cache
+
+from ..utils.profiling import span
 
 _PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -71,14 +72,11 @@ def check(rc: int, what: str) -> None:
 
 def launch_range(name: str):
     """A range named after the kernel on the profiler's host timeline while
-    a torch.profiler session is on, else a no-op context: a trace then
-    names each hand-written kernel at its launch even where it recorded no
+    a torch.profiler session is on, recorded while the span recorder is on,
+    else a no-op context (``utils/profiling.span``): a trace then names
+    each hand-written kernel at its launch even where it recorded no
     device activity."""
-    import torch
-
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+    return span(name)
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

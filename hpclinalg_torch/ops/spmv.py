@@ -57,6 +57,7 @@ from ..cache import cached_plan
 from ..hashing import partition_hash
 from ..parallel.exchange import ExchangePlan
 from ..solver.native import load_ell
+from ..utils.profiling import span
 from .cuda_dia import dia_spmv, pad_trunc
 from .cuda_ell import check_index, ell_spmv, lanes_for
 from .cuda_ell_resident import ell_resident_spmv, make_windows, smem_cap
@@ -318,11 +319,13 @@ def _get_plan(A, partition: np.ndarray, phash: str) -> SpMVPlan:
     key = (A.hash, phash, A.backend.key)
 
     def build():
-        exchange = gather_exchange_plan(
-            A.backend, partition, A.structure.col_indices,
-            out_len=A.structure.Gpad,
-        )
-        return SpMVPlan(A, phash, exchange)
+        with span("plan.exchange"):
+            exchange = gather_exchange_plan(
+                A.backend, partition, A.structure.col_indices,
+                out_len=A.structure.Gpad,
+            )
+        with span("plan.spmv"):
+            return SpMVPlan(A, phash, exchange)
 
     return cached_plan("vector_plan", key, build)
 

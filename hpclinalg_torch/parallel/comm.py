@@ -10,6 +10,11 @@ no collective.
 Complex payloads travel as their (real, imaginary) pairs
 (``torch.view_as_real``) on every transport: NCCL takes complex tensors
 for a sum only, so every collective here moves real words.
+
+Each collective adds one to the counter ``comm.calls`` and the bytes it
+hands to the transport to ``comm.bytes`` (``utils/profiling.count``; held
+through a CUDA graph's capture and added at each replay): the tensor's, or
+the sent splits' for ``all_to_all_v``.
 """
 
 from __future__ import annotations
@@ -17,12 +22,18 @@ from __future__ import annotations
 import torch
 
 from ..backend import Backend
+from ..utils.profiling import count
 
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 
 def _real(t: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _counted(nbytes: int) -> None:
+    count("comm.calls")
+    count("comm.bytes", nbytes)
 
 
 def all_to_all_v(backend: Backend, send: torch.Tensor, in_splits,
@@ -43,6 +54,7 @@ def all_to_all_v(backend: Backend, send: torch.Tensor, in_splits,
                            [f * int(c) for c in out_splits],
                            [f * int(c) for c in in_splits],
                            group=backend.group)
+    _counted(s.element_size() * f * int(sum(in_splits)))
     return out
 
 
@@ -58,6 +70,7 @@ def all_reduce(backend: Backend, t: torch.Tensor,
         raise TypeError(f"all_reduce: {op} of a complex tensor")
     dist.all_reduce(_real(t), op=getattr(dist.ReduceOp, _OPS[op]),
                     group=backend.group)
+    _counted(t.nbytes)
     return t
 
 
@@ -71,6 +84,7 @@ def all_gather_rows(backend: Backend, t: torch.Tensor) -> torch.Tensor:
     src = _real(t.contiguous())
     outs = [torch.empty_like(src) for _ in range(backend.world)]
     dist.all_gather(outs, src, group=backend.group)
+    _counted(src.nbytes)
     out = torch.cat(outs)
     return torch.view_as_complex(out) if t.is_complex() else out
 
@@ -84,4 +98,5 @@ def broadcast(backend: Backend, t: torch.Tensor) -> torch.Tensor:
 
     dist.broadcast(_real(t), src=dist.get_global_rank(backend.group, 0),
                    group=backend.group)
+    _counted(t.nbytes)
     return t

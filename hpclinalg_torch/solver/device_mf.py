@@ -68,6 +68,7 @@ from ..config import round_up
 from ..ops.cuda_ell import check_index
 from ..parallel import comm
 from ..utils import graphs
+from ..utils.profiling import count, span
 from . import symbolic
 from .ordering import amd_order
 
@@ -329,23 +330,33 @@ class DeviceMF:
         self.dtype = torch_dtype(dtype)
         self.backend = backend
         self.device = backend.device
-        S = backend.nshards
-        self.S = S
-        n = A_csr.shape[0]
-        self.n = n
+        self.S = backend.nshards
+        self.n = A_csr.shape[0]
 
-        perm = amd_order(A_csr.indptr.astype(np.int64),
-                         A_csr.indices.astype(np.int64), n)
-        sym = symbolic.analyze(A_csr, perm)
-        # device-tuned amalgamation for scatter-bound (low arithmetic
-        # intensity, 2D-stencil-class) trees: merge harder, since explicit
-        # zeros cost batched dense flops while scatter elements and wave
-        # levels cost launches. Flop-dominated 3D trees (high flops/lnz)
-        # keep the lean host setting.
-        if sym.lnz and sym.flops / sym.lnz < 3000:
-            sym = symbolic.analyze(A_csr, perm, relax=64, zeros_frac=0.5,
-                                   small=64)
+        with span("solver.order"):
+            perm = amd_order(A_csr.indptr.astype(np.int64),
+                             A_csr.indices.astype(np.int64), self.n)
+        with span("solver.symbolic"):
+            sym = symbolic.analyze(A_csr, perm)
+            # device-tuned amalgamation for scatter-bound (low arithmetic
+            # intensity, 2D-stencil-class) trees: merge harder, since
+            # explicit zeros cost batched dense flops while scatter
+            # elements and wave levels cost launches. Flop-dominated 3D
+            # trees (high flops/lnz) keep the lean host setting.
+            if sym.lnz and sym.flops / sym.lnz < 3000:
+                sym = symbolic.analyze(A_csr, perm, relax=64,
+                                       zeros_frac=0.5, small=64)
         self.sym = sym
+        with span("solver.schedule"):
+            self._schedule(A_csr, perm, row_partition)
+
+    def _schedule(self, A_csr, perm, row_partition):
+        """The plan after the ordering and the symbolic analysis: the
+        subtree mapping, the wave levels, every level's assembly,
+        extend-add and solve tables (checked on the host, then uploaded)
+        and the exchanges of the right-hand side and the solution."""
+        kind, backend, S, n, sym = (self.kind, self.backend, self.S, self.n,
+                                    self.sym)
         ns = sym.nsuper
         ptr, rows_of = sym.snode_ptr, sym.snode_rows
         parent = sym.snode_parent
@@ -1168,7 +1179,8 @@ class DeviceFactorization:
             if self._factor_graph is None:
                 eng = self.engine
                 self._factor_graph = graphs.CapturedStep(
-                    lambda a, e: _factor_program(eng, a, e), (Avals, eps))
+                    lambda a, e: _factor_program(eng, a, e), (Avals, eps),
+                    name="solver_factor")
             loc, top, self._prepped, stats = self._factor_graph(Avals, eps)
         # growth monitor: the device engine has no numerical pivoting, so a
         # legal-but-tiny pivot shows up as large |L| growth; flag it and
@@ -1177,6 +1189,7 @@ class DeviceFactorization:
         # of a factorization: the perturbation count, the failure count
         # and the growth.
         np_, nfail, g = stats.tolist()
+        count("solver.host_reads")
         self.factors = (loc, top, int(np_))
         self.n_perturbed = int(np_)
         # the reference reads the growth in f32
@@ -1191,7 +1204,8 @@ class DeviceFactorization:
         if A.hash != self.structural_hash:
             raise ValueError("refactorize requires the same sparsity pattern")
         self.A = A
-        self._numeric(A)
+        with span("solver.refactorize"):
+            self._numeric(A)
         return self
 
     def _default_refine(self) -> int:
@@ -1221,7 +1235,8 @@ class DeviceFactorization:
             if step is None:
                 eng, prepped = self.engine, self._prepped
                 step = self._solve_graphs[key] = graphs.CapturedStep(
-                    lambda bb: eng.solve_prepped(prepped, bb, tr), (b3,))
+                    lambda bb: eng.solve_prepped(prepped, bb, tr), (b3,),
+                    name="solver_solve")
             # the graph rewrites its output at the next replay
             x = step(b3).clone()
         return x[:, :, 0] if squeeze else x
@@ -1257,10 +1272,12 @@ class DeviceFactorization:
         Aop = self.A.T if transpose else self.A
         rtol = 50 * torch.finfo(self.engine.dtype).eps
         bn = float(Bd.norm())
+        count("solver.host_reads")
         prev = np.inf
         for _ in range(refine):
             R = Bd - Aop @ Xd
             rn = float(R.norm())
+            count("solver.host_reads")
             if bn > 0 and (rn <= rtol * bn or rn >= 0.8 * prev):
                 break
             prev = rn
@@ -1294,12 +1311,14 @@ class DeviceFactorization:
         b64 = DistVector(Bd.data.to(torch.float64), part, self.backend)
         x64 = Xs.to(torch.float64)
         bn = float(b64.norm())
+        count("solver.host_reads")
         prev = np.inf
         cap = max(refine, self._EXT_MAX_SWEEPS) if full_budget \
             else refine + 3
         for _ in range(cap):
             r = b64 - Aop @ DistVector(x64, part, self.backend)
             rn = float(r.norm())
+            count("solver.host_reads")
             if bn > 0 and (rn <= self._EXT_RTOL * bn or rn >= 0.9 * prev):
                 break
             prev = rn
@@ -1317,27 +1336,28 @@ class DeviceFactorization:
         from ..parallel.mesh import scatter_from_full
         from ..vector import DistVector
 
-        if self.factors is None:
-            raise RuntimeError("factorization was finalized")
-        if refine is None:
-            refine = self._default_refine()
-        is_dist = isinstance(b, DistVector)
-        part = self.A.row_partition
-        if not is_dist:
-            # host-array RHS refines through the same distributed path
-            b = DistVector(scatter_from_full(
-                self.backend.tensor(np.asarray(b)), part, self.backend),
-                part, self.backend)
+        with span("solver.solve"):
+            if self.factors is None:
+                raise RuntimeError("factorization was finalized")
+            if refine is None:
+                refine = self._default_refine()
+            is_dist = isinstance(b, DistVector)
+            part = self.A.row_partition
+            if not is_dist:
+                # host-array RHS refines through the same distributed path
+                b = DistVector(scatter_from_full(
+                    self.backend.tensor(np.asarray(b)), part, self.backend),
+                    part, self.backend)
 
-        def to_dist(xs):
-            # xs arrives stacked/row-distributed from solve_dist
-            return DistVector(xs.to(b.dtype), part, self.backend)
+            def to_dist(xs):
+                # xs arrives stacked/row-distributed from solve_dist
+                return DistVector(xs.to(b.dtype), part, self.backend)
 
-        xd = self._refined_solve(b, transpose, refine, to_dist,
-                                 extended=extended)
-        if not is_dist:
-            return xd.to_numpy()
-        return xd if xd.dtype == b.dtype else to_dist(xd.data)
+            xd = self._refined_solve(b, transpose, refine, to_dist,
+                                     extended=extended)
+            if not is_dist:
+                return xd.to_numpy()
+            return xd if xd.dtype == b.dtype else to_dist(xd.data)
 
     def solve_transpose(self, b, refine: int | None = None):
         """Solve Aᵀ x = b: ``solve(b, transpose=True)``, as the host

@@ -1535,12 +1535,62 @@ def checks(be) -> dict:
     return out
 
 
+def comm_counts(be, n: int = 64, steps: int = 5,
+                graphed: bool = False) -> dict:
+    """The span recorder over ``steps`` CG steps (``entry.cg_step_fn``) on
+    the 1-D Laplacian of n rows, f64: eager steps, or (``graphed``) the
+    step captured with the recorder on and replayed, the recorder cleared
+    between the capture and the replays. Returns the counters
+    ``comm.calls`` and ``comm.bytes`` and each span's calls over the steps
+    (``spans.<name>``), the bytes the SpMV's exchange sends from this rank
+    a product (``sent_bytes``, from ``ExchangePlan._in_splits``) and
+    whether it crosses ranks; graphed, also the capture's
+    ``graph.cg_step.nodes`` counter (``counted_nodes``) and
+    ``graph_nodes`` of the captured graph (``nodes``)."""
+    import hpclinalg_torch as ht
+    from ..entry import capture, cg_step_fn
+    from ..utils import profiling
+    from ..utils.graphs import graph_nodes
+
+    lap = sp.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                   [-1, 0, 1], format="csr")
+    A = ht.DistSparseMatrix.from_scipy(lap, be)
+    step, x0 = cg_step_fn(A, be)
+    ex = step.plan.exchange
+    b = ht.DistVector.from_global(np.ones(n), be)
+    args = (x0.data, b.data, b.data)
+    out = {"sent_bytes": 8 * sum(ex._in_splits) if ex.crosses else 0,
+           "crosses": ex.crosses}
+    profiling.reset_trace()
+    profiling.tracing(True)
+    try:
+        if graphed:
+            step = capture(step, args)
+            out["counted_nodes"] = profiling.trace_report()["counters"][
+                "graph.cg_step.nodes"]
+            out["nodes"] = sum(graph_nodes(step.graph).values())
+            profiling.reset_trace()
+        for _ in range(steps):
+            args = step(*args)
+        if graphed:
+            torch.cuda.synchronize()
+        rep = profiling.trace_report()
+    finally:
+        profiling.tracing(False)
+        profiling.reset_trace()
+    out.update({k: rep["counters"].get(k, 0)
+                for k in ("comm.calls", "comm.bytes")})
+    out.update({f"spans.{k}": v["calls"] for k, v in rep["spans"].items()})
+    return {f"counts.{k}": _np(v) for k, v in out.items()}
+
+
 BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
           "spmv": spmv, "algebra": algebra, "cg": cg, "solves": solves,
           "utilities": utilities, "group_ops": group_ops, "card": card,
           "solver_checks": solver_checks, "chol_failure": chol_failure,
           "solvers": solvers, "assembly_checks": assembly_checks,
-          "assembly": assembly, "entry_steps": entry_steps}
+          "assembly": assembly, "entry_steps": entry_steps,
+          "comm_counts": comm_counts}
 
 
 def on_rank(device: str, body: str, kwargs: dict) -> dict:

@@ -11,6 +11,9 @@ import time
 import numpy as np
 import torch
 
+# a captured graph's nodes by type: in ``utils/graphs`` beside the capture
+from ..utils.graphs import GRAPH_NODE_TYPES, graph_nodes  # noqa: F401
+
 
 def require_cuda() -> torch.device:
     """The first CUDA device; raises when there is none (the probes measure
@@ -129,39 +132,3 @@ def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
         if got.numel() else 0.0
     scale = float(want.double().abs().max()) if want.numel() else 0.0
     return err, err / max(scale, 1e-300)
-
-
-# cuGraphNodeGetType's CUgraphNodeType values (cuda.h)
-GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
-                    4: "graph", 5: "empty", 6: "wait_event",
-                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
-
-
-def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:
-    """{node type: count} of a captured graph's nodes (``keep_graph=True``,
-    as ``utils/graphs.record`` captures), read through libcuda
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``): its kernels are the
-    launches of one replay."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-
-    def ok(rc):
-        if rc != 0:
-            raise RuntimeError(f"graph_nodes: libcuda returned {rc}")
-
-    g = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)))
-    nodes = (ctypes.c_void_p * n.value)()
-    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)))
-    counts, kind = {}, ctypes.c_int()
-    for node in nodes:
-        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
-        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
-        counts[name] = counts.get(name, 0) + 1
-    return counts

@@ -16,15 +16,22 @@ it (``entry.capture``) or run the work eagerly where that is their
 documented behaviour (``DeviceFactorization``). A capture that fails
 raises RuntimeError: nothing here runs the work eagerly in a graph's
 place. The kernels' wrappers count their launches through
-``count_launch``, so that a launch recorded into a graph counts once
-for each replay, not at the capture.
+``count_launch``, and the port's named counters go through
+``profiling.count``: a launch or a count recorded into a graph is held
+(``_held``) and counts once for each replay, not at the capture. A
+``CapturedStep`` named ``<name>`` records the spans ``graph.<name>``
+(a call) and ``graph.<name>.launch`` (its replay), ``graph.capture``, and
+the counter ``graph.<name>.nodes`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import torch
+
+from . import profiling
 
 
 def _device_refusal(tensors) -> str | None:
@@ -72,8 +79,9 @@ def warm_up(fn, device):
     return out
 
 
-# {wrapper: launches of its kernel recorded into the graph that is being
-# captured}, None outside a capture (``count_launch``, ``CapturedStep``)
+# {wrapper: launches of its kernel, or counter name: its count, recorded
+# into the graph that is being captured}, None outside a capture
+# (``count_launch``, ``profiling.count``, ``CapturedStep``)
 _held = None
 
 
@@ -114,6 +122,39 @@ def record(fn, device):
     return graph, out, {"capture_s": t1 - t0, "instantiate_s": t2 - t1}
 
 
+# cuGraphNodeGetType's CUgraphNodeType values (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:
+    """{node type: count} of a captured graph's nodes (``keep_graph=True``,
+    as ``record`` captures), read through libcuda (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``): its kernels are the launches of one replay."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+
+    def ok(rc):
+        if rc != 0:
+            raise RuntimeError(f"graph_nodes: libcuda returned {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)))
+    counts, kind = {}, ctypes.c_int()
+    for node in nodes:
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
@@ -127,7 +168,10 @@ class CapturedStep:
     the capture, tensors that the replay has rewritten in place. The next
     call overwrites them; clone a result to keep it. ``held``: the
     launches of each counted kernel in one replay (``count_launch``),
-    added to the kernels' counters at every call.
+    added to the kernels' counters at every call; ``held_counts``: the
+    named counts of one replay (``profiling.count``), added at every call
+    while the recorder is on. ``name`` names its spans and counter (the
+    module's docstring).
 
     An argument that IS its position's static tensor is not copied, so
     ``x, r, p = step(x, r, p)`` on a step that writes its results into its
@@ -137,20 +181,34 @@ class CapturedStep:
     of another shape, dtype or device raises ValueError: a graph holds one
     shape, as ``jax.jit`` traces one per shape."""
 
-    def __init__(self, fn, example_args):
+    def __init__(self, fn, example_args, name: str = "step"):
         global _held
         args = tuple(example_args)
         dev = args[0].device
-        self.static = tuple(a.detach().clone() for a in args)
-        warm_up(lambda: fn(*self.static), dev)
-        self.held = _held = {}
-        try:
-            self.graph, self.out, self.times = record(
-                lambda: fn(*self.static), dev)
-        finally:
-            _held = None
+        self._span, self._launch = f"graph.{name}", f"graph.{name}.launch"
+        with profiling.span("graph.capture", name):
+            self.static = tuple(a.detach().clone() for a in args)
+            warm_up(lambda: fn(*self.static), dev)
+            held = _held = {}
+            try:
+                self.graph, self.out, self.times = record(
+                    lambda: fn(*self.static), dev)
+            finally:
+                _held = None
+        self.held = {k: n for k, n in held.items() if not isinstance(k, str)}
+        self.held_counts = {k: n for k, n in held.items()
+                            if isinstance(k, str)}
+        if profiling._on:
+            profiling.count(f"graph.{name}.nodes",
+                            sum(graph_nodes(self.graph).values()))
 
     def __call__(self, *args):
+        if not profiling.active():
+            return self._call(args, False)
+        with profiling.span(self._span):
+            return self._call(args, True)
+
+    def _call(self, args, spans: bool):
         if len(args) != len(self.static):
             raise TypeError(f"the step takes {len(self.static)} tensors, "
                             f"got {len(args)}")
@@ -169,7 +227,13 @@ class CapturedStep:
         for s, a in zip(self.static, args):
             if a is not s:
                 s.copy_(a)
-        self.graph.replay()
+        if spans:
+            with profiling.span(self._launch):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         for wrapper, n in self.held.items():
             wrapper.launches += n
+        if self.held_counts:
+            profiling.add_counts(self.held_counts)
         return self.out

@@ -61,6 +61,11 @@ def be4():
     return hl.backend_auto(nshards=4)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(autouse=True)
 def _cache_guard():
     """Leak guard analogue of check_cache_sizes! in the reference tests."""
