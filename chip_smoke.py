@@ -210,17 +210,34 @@ hpclinalg_torch/csrc, then:
      10^6 x 8 matrix (K2), (v) entry() itself (laplace2d(64), f32, K1).
      Each case's launch counters are set to 0 just before its 20 eager raw
      steps and read just after its capture and 20 replays, which must
-     equal the eager steps bit for bit, the public-API CG to 1e-10 (f32 1e-5) and, for (i) and
-     (v), a host replay in numpy (1e-10; 1e-4 in f64 and f32); it prints
+     equal the eager steps bit for bit, launch each of the step's three
+     vector kernels once a step, and equal the public-API CG to 1e-10
+     (f32 1e-5) on the symmetric positive definite cases ((iv) instead:
+     from each state, the kernels against the step and the plain
+     arithmetic, and one public-API step while rounding allows; see
+     tools/cg_graph.py) and, for (i) and (v), a host replay in numpy
+     (1e-10; 1e-4 in f64 and f32); it prints
      the wall time a step (CUDA events, median of 5 runs of 50), the host
      time a step and, from one torch.profiler session, the device time
      and kernels of one call, for the replay, the eager raw step and
      phase 4's public-API step taken in turns, and checks that a step
      that reads a value on the host fails to capture. Then case (i) with
      one shard a process (tools/dist_checks.entry_steps): NCCL at world 1
-     graphed (its three all_reduces in the graph) and eager, gloo at world
+     graphed (its two all_reduces in the graph) and eager, gloo at world
      4 on the card eager, where capture must refuse the group; each rank
-     held against the same steps stacked (rtol 1e-10).
+     held against the same steps stacked (rtol 1e-10) and each launching
+     the three vector kernels once a step.
+ 16. holds the CG step's vector kernels (hpclinalg_torch/csrc/cg_vec.cu:
+     cg_dots, cg_update_xr, cg_update_p) on HPCG's 27-point operator at
+     104^3 (1,124,864 rows), f64, S = 1: the step takes them; their launch
+     counters are set to 0 just before 20 replays of the captured step
+     and read just after (20 each); from the state the replays leave, the
+     kernels once on the same inputs equal the step bit for bit, their
+     updates equal the plain arithmetic given their own alpha and beta,
+     and their dots a double torch.dot to 1e-12 of the terms' magnitudes;
+     then each kernel, its plain version (that pass of the plain step)
+     and its library calls (torch.dot; torch.add with the scalar on the
+     host) are timed in turns beside its bound (27, 54 and 27 MB).
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -2267,7 +2284,7 @@ def phase15_entry(ht, dev, card, times):
     world 1, graphed and eager, (b) gloo at world DIST_WORLD on the card,
     eager, where ``capture`` must refuse the group, (c) NCCL at world =
     device count with two cards or more, graphed (the exchange's
-    ``all_to_all_single`` and the three all_reduces in the graph) and
+    ``all_to_all_single`` and the two all_reduces in the graph) and
     eager. Each rank's 20 steps
     are held against the same steps stacked here at that S (rtol
     ENTRY_RTOL; the dots are summed in another order on a group). Returns
@@ -2299,7 +2316,7 @@ def phase15_entry(ht, dev, card, times):
         "phase 15 ran cases (i)-(v) on this card; each equalled its eager "
         "raw step bit for bit")
     launches = {k: sum(record["launches"][c][k] for c in record["launches"])
-                for k in dc.LAUNCH_COUNTERS}
+                for k in dc.LAUNCH_COUNTERS + dc.CG_LAUNCH_COUNTERS}
     kw = {"k": K, "seed": B_SEED, "dtypes": ("float64",)}
     count = torch.cuda.device_count()
     arrangements = [("nccl", 1), ("gloo", DIST_WORLD)]
@@ -2311,7 +2328,7 @@ def phase15_entry(ht, dev, card, times):
     refs = {S: dc.entry_steps(ht.backend_auto(S, device=dev), graphed=True,
                               **kw) for S in {S for _, S in arrangements}}
     torch.cuda.empty_cache()
-    dist = {k: {} for k in dc.LAUNCH_COUNTERS}
+    dist = {k: {} for k in dc.LAUNCH_COUNTERS + dc.CG_LAUNCH_COUNTERS}
     for transport, world in arrangements:
         what = f"{transport} world {world}"
         key = f"{transport}_world{world}"
@@ -2343,11 +2360,15 @@ def phase15_entry(ht, dev, card, times):
                       f"max_abs_err={e:.3e})")
                 err = max(err, e)
             n = {k: int(out[f"entry.launches.float64.{k}"])
-                 for k in dc.LAUNCH_COUNTERS}
+                 for k in dc.LAUNCH_COUNTERS + dc.CG_LAUNCH_COUNTERS}
             check(n["dia"] >= 1 and (world == 1 or n["gather"] >= 1),
                   f"{what} rank {r} launched K1 and, across ranks, K2's "
                   f"gather mode: {n}")
-        for k in dc.LAUNCH_COUNTERS:
+            check(len({n[k] for k in dc.CG_LAUNCH_COUNTERS}) == 1
+                  and n["cg_dots"] >= 20,
+                  f"{what} rank {r} launched each of the step's vector "
+                  f"kernels once a step: {n}")
+        for k in dc.LAUNCH_COUNTERS + dc.CG_LAUNCH_COUNTERS:
             dist[k][key] = [int(r[f"entry.launches.float64.{k}"])
                             for r in ranks]
         rec = {"phase15": key, "card": card, "seconds": secs,
@@ -2356,12 +2377,100 @@ def phase15_entry(ht, dev, card, times):
                   for t in ranks[0] if t.startswith("entry.time.")},
                "stacked_S1": {v: record["cases"]["lap"][v]
                               for v in ("graphed", "eager", "api")},
-               "launches": {k: dist[k][key] for k in dc.LAUNCH_COUNTERS},
+               "launches": {k: dist[k][key] for k in dist},
                "max_abs_err": err}
         times[f"phase15_{key}"] = rec
         print(json.dumps(rec), flush=True)
     times["phase15"] = record
     return launches, dist
+
+
+HPCG_K = 104             # phase 16: HPCG's 27-point operator on a 104^3 grid
+
+
+def phase16_cg_vec(ht, dev, card, timer, times):
+    """The CG step's vector kernels (``ops/cuda_cg.py``) on HPCG's operator
+    at HPCG_K^3, f64, S = 1, where the step takes them: their launch
+    counters set to 0 just before 20 replays of the captured step and read
+    just after; from the state the replays leave, the kernels once on the
+    same inputs against the step and the plain arithmetic
+    (``cg_graph.against_plain``); then each kernel, its plain version (the
+    plain step's operations for that pass, scalars on the device) and its
+    library calls (``torch.dot``, ``torch.add`` with the scalar on the
+    host) timed in turns beside its bound. Returns {kernel: record}."""
+    from hpclinalg_torch.entry import capture, cg_step_fn
+    from hpclinalg_torch.ops import cuda_cg
+    from hpclinalg_torch.tools import dist_checks as dc
+    from hpclinalg_torch.tools.cg_graph import against_plain
+    from hpclinalg_torch.tools.matrices import hpcg27
+
+    be = ht.backend_auto(1, dtype=np.float64, device=dev)
+    A = ht.DistSparseMatrix.from_scipy(hpcg27(HPCG_K), be)
+    step, x0 = cg_step_fn(A, be)
+    check(step.fused and step.engine == "dia",
+          f"HPCG {HPCG_K}^3 f64: the step takes the vector kernels and K1")
+    b = ht.DistVector.from_global(np.random.default_rng(SEED + 16)
+                                  .standard_normal(A.m), be).data
+    graph = capture(step, (x0.data, b, b))
+    dc.reset_launch_counts()
+    args = (x0.data, b, b)
+    for _ in range(20):
+        args = graph(*args)
+    torch.cuda.synchronize()
+    n = dc.launch_counts()
+    check(all(n[k] == 20 for k in dc.CG_LAUNCH_COUNTERS + ("dia",)),
+          f"20 replays launched each vector kernel and K1 20 times: {n}")
+    x, r, p = (t.clone() for t in args)
+    Ap = step.spmv(p)
+    mine, res = against_plain(x, r, p, Ap)
+    nxt = step(x, r, p)
+    check(all(torch.equal(a, c) for a, c in zip(mine, nxt)),
+          "the kernels once on the state equal the step bit for bit; their "
+          "updates equal the plain arithmetic with their own alpha and "
+          f"beta; their dots within {res['dot_err']:.3e} of the terms' "
+          "magnitudes of a double torch.dot")
+    N = x.numel()
+    xf, rf, pf, Apf = (t.reshape(-1) for t in (x, r, p, Ap))
+    ws = cuda_cg.Workspace(N, torch.float64, dev)
+    cuda_cg.cg_dots(p, Ap, r, ws)
+    xo, ro, po = (torch.empty_like(t) for t in (x, r, p))
+    cuda_cg.cg_update_xr(x, r, p, Ap, ws, xo, ro)
+    d, rr = ws.dots.clone(), ws.rr.clone()
+    alpha, beta = d[1] / d[0], rr[0] / d[1]
+    ah, bh = float(alpha), float(beta)
+    xl, rl, pl = (torch.empty_like(t) for t in (xf, rf, pf))
+    fns = {
+        "cg_dots": (
+            lambda: cuda_cg.cg_dots(p, Ap, r, ws),
+            lambda: torch.stack([torch.vdot(pf, Apf), torch.vdot(rf, rf)]),
+            lambda: (torch.dot(pf, Apf), torch.dot(rf, rf)), 3),
+        "cg_update_xr": (
+            lambda: cuda_cg.cg_update_xr(x, r, p, Ap, ws, xo, ro),
+            lambda: (torch.add(x, alpha * p, out=xo),
+                     torch.vdot(torch.sub(r, alpha * Ap, out=ro).reshape(-1),
+                                ro.reshape(-1))),
+            lambda: (torch.add(xf, pf, alpha=ah, out=xl),
+                     torch.dot(torch.add(rf, Apf, alpha=-ah, out=rl), rl)),
+            6),
+        "cg_update_p": (
+            lambda: cuda_cg.cg_update_p(ro, p, ws, po),
+            lambda: torch.add(ro, beta * p, out=po),
+            lambda: torch.add(ro.reshape(-1), pf, alpha=bh, out=pl), 3)}
+    out = {}
+    for name, (fk, fp, fl, vectors) in fns.items():
+        ms, plain, lib = timer.turns(fk, fp, fl)
+        nbytes = vectors * N * 8
+        bms, by = case_line(f"{name} HPCG {HPCG_K}^3 f64", ms, plain, lib,
+                            nbytes, 0.0, torch.float64, card)
+        out[name] = {"launches": n[name], "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": 0.0}
+    e = res["dot_abs_errs"]
+    out["cg_dots"]["max_abs_err"] = max(e[:2])
+    out["cg_update_xr"]["max_abs_err"] = e[2]
+    out["cg_dots"]["max_dot_err"] = res["dot_err"]
+    times["phase16"] = {"n": N, "dots": res["dots"], **out}
+    return out
 
 
 def main():
@@ -2818,6 +2927,13 @@ def main():
     print(f"phase 15 launches (cases): {graph_launches}; per rank: "
           f"{graph_dist}; phase 15 took {t15:.1f} s  [{card}]", flush=True)
 
+    # ---- phase 16: the CG step's vector kernels at HPCG's size -----------
+    print(f"phase 16: the CG step's vector kernels (cg_dots, cg_update_xr, "
+          f"cg_update_p) on HPCG's 27-point operator at {HPCG_K}^3, f64, "
+          f"S = 1 on {card}", flush=True)
+    cgk, t16 = timed_s(lambda: phase16_cg_vec(ht, dev, card, timer, times))
+    print(f"phase 16 took {t16:.1f} s  [{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -2899,6 +3015,17 @@ def main():
          "launches": launches7["kpayload"], "max_abs_err": kp["err"],
          **probe(kp, kp["bound_bytes"], k5_lib_ms),
          "sector_floor_ms": kp["sector_floor_ms"]},
+    ] + [
+        {"name": f"{k} (CG step: {what})", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/cg_vec.cu",
+         "replaces": "none: XLA fuses the JAX step's vector work "
+                     "(__graft_entry__.py _cg_step_fn)",
+         "plain": "entry.cg_step_fn's plain step",
+         "graph_launches": graph_launches[k],
+         "graph_dist_launches": graph_dist[k], **cgk[k]}
+        for k, what in (("cg_dots", "p.Ap, r.r"),
+                        ("cg_update_xr", "x + alpha p, r - alpha Ap, r'.r'"),
+                        ("cg_update_p", "r' + beta p"))
     ] + [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "dtypes": ["complex64", "complex128"],

@@ -14,13 +14,18 @@ this process's raw shards ``(x, r, p)``, each (nlocal, Lrow), closing over
 the static plan of ``A @ x`` (``ops/spmv.get_spmv_plan``): its exchange,
 its engine and the engine's value tables, built once here. The step is
 the JAX package's ``_cg_step_fn`` (``__graft_entry__.py:23-64``) with its
-three dots, each ``all_reduce``d on a process group as ``DistVector.dot``
-does, and α and β kept on the device: nothing in it reads a value on the
-host. Its SpMV takes the engine that ``A @ x`` takes (``ops/spmv.py``
-``gathered``, ``local_spmv``): K1 on the DIA engine, K2's gather mode
-before it on a non-identity exchange, K3 on the resident engine, K2 on the
-ELL engine. (The JAX step takes the segment sum off the DIA engine, so the
-two steps agree to a tolerance there, not bit for bit.)
+three dots, ``all_reduce``d on a process group as ``DistVector.dot`` does
+(p·Ap and r·r in one call, the new r·r in a second), and α and β kept on
+the device: nothing in it reads a value on the host. Its SpMV takes the
+engine that ``A @ x`` takes (``ops/spmv.py`` ``gathered``,
+``local_spmv``): K1 on the DIA engine, K2's gather mode before it on a
+non-identity exchange, K3 on the resident engine, K2 on the ELL engine.
+(The JAX step takes the segment sum off the DIA engine, so the two steps
+agree to a tolerance there, not bit for bit.) The vector work after the
+SpMV runs as three hand-written kernels (``ops/cuda_cg.py``) when the
+step's vectors are CUDA tensors of a real type, and as plain PyTorch
+otherwise (the CPU, complex types), the kernels' oracle; a step counts
+``cg.fused_steps`` or ``cg.plain_steps`` (``utils/profiling.count``).
 
 ``capture(fn, args)`` is the counterpart of ``jax.jit`` for a step whose
 shapes are fixed: the step captured once as a ``torch.cuda.CUDAGraph`` and
@@ -37,13 +42,14 @@ import numpy as np
 import torch
 
 from .backend import backend_auto, torch_dtype
+from .ops import cuda_cg
 from .ops.spmv import gathered, get_spmv_plan, local_spmv
 from .parallel import comm
 from .sparse import DistSparseMatrix
 from .tools.matrices import laplace2d
 from .utils import graphs
 from .utils.graphs import CapturedStep
-from .utils.profiling import span
+from .utils.profiling import count, span
 from .vector import DistVector
 
 
@@ -57,7 +63,12 @@ def cg_step_fn(Ad: DistSparseMatrix, be):
     that overlap no other one of the three, but may be x, r and p
     themselves (each is written after its last read), with the same
     arithmetic: ``capture``'s graph updates its static tensors so.
-    ``cg_step.backend``, ``.plan`` and ``.engine`` name what it runs on."""
+    ``cg_step.backend``, ``.plan`` and ``.engine`` name what it runs on,
+    ``.spmv`` is its product ``A @ p`` over raw shards; ``cg_step.fused``
+    whether its vector work runs the kernels of ``ops/cuda_cg.py``, decided
+    here from the device and the step's type (their workspace is allocated
+    here, before any capture; on CUDA a backend whose vectors are not of
+    the step's type raises ValueError)."""
     x0 = DistVector.zeros(Ad.m, be, partition=Ad.row_partition)
     plan = get_spmv_plan(Ad, x0)
     dt = torch.promote_types(Ad.dtype, torch_dtype(be.dtype))
@@ -72,21 +83,38 @@ def cg_step_fn(Ad: DistSparseMatrix, be):
     with span("plan.values"):
         spmv(x0.data)
 
+    ws = None
+    if cuda_cg.fused_route(x0.data.device, dt):
+        if x0.data.dtype != dt:
+            raise ValueError(f"cg_step_fn: A @ x is {dt} but the backend's "
+                             f"vectors are {x0.data.dtype}; on CUDA the "
+                             "step's kernels take one type: build A on a "
+                             f"{dt} backend")
+        ws = cuda_cg.Workspace(x0.data.numel(), dt, x0.data.device)
+
     def vdot(a, b):
-        return comm.all_reduce(be, torch.vdot(a.reshape(-1), b.reshape(-1)))
+        return torch.vdot(a.reshape(-1), b.reshape(-1))
 
     def cg_step(x, r, p, out=None):
         xo, ro, po = (None,) * 3 if out is None else out
         Ap = spmv(p)
-        rr = vdot(r, r)
-        alpha = rr / vdot(p, Ap)
+        if ws is not None:
+            count("cg.fused_steps")
+            comm.all_reduce(be, cuda_cg.cg_dots(p, Ap, r, ws))
+            x2, r2 = cuda_cg.cg_update_xr(x, r, p, Ap, ws, xo, ro)
+            comm.all_reduce(be, ws.rr)
+            return x2, r2, cuda_cg.cg_update_p(r2, p, ws, po)
+        count("cg.plain_steps")
+        pAp, rr = comm.all_reduce(be, torch.stack([vdot(p, Ap), vdot(r, r)]))
+        alpha = rr / pAp
         x2 = torch.add(x, alpha * p, out=xo)
         r2 = torch.sub(r, alpha * Ap, out=ro)
-        beta = vdot(r2, r2) / rr
+        beta = comm.all_reduce(be, vdot(r2, r2)) / rr
         p2 = torch.add(r2, beta * p, out=po)
         return x2, r2, p2
 
     cg_step.backend, cg_step.plan, cg_step.engine = be, plan, engine
+    cg_step.spmv, cg_step.fused = spmv, ws is not None
     return cg_step, x0
 
 

@@ -931,23 +931,28 @@ def meta(be) -> dict:
 # -- chip_smoke.py phase 12: the main path at full size, per rank -----------------
 
 LAUNCH_COUNTERS = ("dia", "ell", "gather", "resident")
+# the CG step's vector kernels (ops/cuda_cg.py), which only
+# entry.cg_step_fn's step launches
+CG_LAUNCH_COUNTERS = ("cg_dots", "cg_update_xr", "cg_update_p")
+
+
+def _launchers() -> dict:
+    from ..ops import cuda_cg, cuda_dia, cuda_ell, cuda_ell_resident
+
+    return {"dia": cuda_dia.dia_spmv, "ell": cuda_ell.ell_spmv,
+            "gather": cuda_ell.gather,
+            "resident": cuda_ell_resident.ell_resident_spmv,
+            **{k: getattr(cuda_cg, k) for k in CG_LAUNCH_COUNTERS}}
 
 
 def launch_counts() -> dict:
-    """The kernels' launch counters: K1, K2, K2's gather mode, K3."""
-    from ..ops import cuda_dia, cuda_ell, cuda_ell_resident
-
-    return {"dia": cuda_dia.dia_spmv.launches,
-            "ell": cuda_ell.ell_spmv.launches,
-            "gather": cuda_ell.gather.launches,
-            "resident": cuda_ell_resident.ell_resident_spmv.launches}
+    """The kernels' launch counters: K1, K2, K2's gather mode, K3
+    (``LAUNCH_COUNTERS``) and the CG step's three (``CG_LAUNCH_COUNTERS``)."""
+    return {k: f.launches for k, f in _launchers().items()}
 
 
 def reset_launch_counts() -> None:
-    from ..ops import cuda_dia, cuda_ell, cuda_ell_resident
-
-    for f in (cuda_dia.dia_spmv, cuda_ell.ell_spmv, cuda_ell.gather,
-              cuda_ell_resident.ell_resident_spmv):
+    for f in _launchers().values():
         f.launches = 0
 
 

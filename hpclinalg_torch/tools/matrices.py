@@ -15,6 +15,13 @@ def laplace2d(k):
     return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
 
 
+def hpcg27(k):
+    """HPCG's 27-point operator on a k x k x k grid: 26 on the diagonal, -1
+    for each neighbour inside the grid (k^3 rows, x fastest)."""
+    T = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(k, k))
+    return (27.0 * sp.eye(k ** 3) - sp.kron(T, sp.kron(T, T))).tocsr()
+
+
 def helmholtz(k, shift=0.5, damp=0.05):
     """laplace2d(k) - shift I + damp i I: a complex-symmetric, indefinite
     Helmholtz operator (the JAX package's tests/test_cplx.py _helmholtz)."""
