@@ -1283,6 +1283,7 @@ class DeviceFactorization:
             prev = rn
             if not np.array_equal(self._part_of(R), part):
                 R = R.repartition(part)
+            count("solver.refine_sweeps")
             Xs = Xs + self._solve_dist(R.data, transpose)
             Xd = to_dist(Xs)
         return Xd
@@ -1324,6 +1325,7 @@ class DeviceFactorization:
             prev = rn
             if not np.array_equal(r.partition, part):
                 r = r.repartition(part)
+            count("solver.refine_sweeps")
             x64 = x64 + self._solve_dist(
                 r.data.to(torch.float32), transpose).to(torch.float64)
         return DistVector(x64, part, self.backend)
@@ -1348,6 +1350,7 @@ class DeviceFactorization:
                 b = DistVector(scatter_from_full(
                     self.backend.tensor(np.asarray(b)), part, self.backend),
                     part, self.backend)
+            count("solver.rhs_columns")
 
             def to_dist(xs):
                 # xs arrives stacked/row-distributed from solve_dist
@@ -1374,24 +1377,26 @@ class DeviceFactorization:
         from ..dense import DistDenseMatrix
         from ..parallel.mesh import scatter_from_full
 
-        if self.factors is None:
-            raise RuntimeError("factorization was finalized")
-        if refine is None:
-            refine = self._default_refine()
-        is_dist = isinstance(B, DistDenseMatrix)
-        part = self.A.row_partition
-        if not is_dist:
-            Bg = self.backend.tensor(np.asarray(B))
-            B = DistDenseMatrix(scatter_from_full(Bg, part, self.backend),
-                                part, Bg.shape[1], self.backend)
-        k = B.ncols
+        with span("solver.solve_matrix"):
+            if self.factors is None:
+                raise RuntimeError("factorization was finalized")
+            if refine is None:
+                refine = self._default_refine()
+            is_dist = isinstance(B, DistDenseMatrix)
+            part = self.A.row_partition
+            if not is_dist:
+                Bg = self.backend.tensor(np.asarray(B))
+                B = DistDenseMatrix(scatter_from_full(Bg, part, self.backend),
+                                    part, Bg.shape[1], self.backend)
+            k = B.ncols
+            count("solver.rhs_columns", k)
 
-        def to_dist(Xs):
-            return DistDenseMatrix(Xs.to(B.dtype), part, k, self.backend)
+            def to_dist(Xs):
+                return DistDenseMatrix(Xs.to(B.dtype), part, k, self.backend)
 
-        Xd = self._refined_solve(B, transpose, refine, to_dist,
-                                 extended=extended)
-        return Xd if is_dist else Xd.to_numpy()
+            Xd = self._refined_solve(B, transpose, refine, to_dist,
+                                     extended=extended)
+            return Xd if is_dist else Xd.to_numpy()
 
     def finalize(self):
         """Drops the factors and this factorization's graphs, with their
