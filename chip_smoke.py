@@ -238,6 +238,18 @@ hpclinalg_torch/csrc, then:
      then each kernel, its plain version (that pass of the plain step)
      and its library calls (torch.dot; torch.add with the scalar on the
      host) are timed in turns beside its bound (27, 54 and 27 MB).
+ 17. holds the device LDLT's leaf kernel (hpclinalg_torch/csrc/ldl_leaf.cu)
+     on the main path: ldlt(method="device", spd=False) of Helmholtz(256)
+     in c128 at S = 1 and its solve, the kernel's launch counter and the
+     recorder's counters set to 0 just before and read just after: its
+     launches equal solver.ldl_leaf_kernels, no leaf takes the plain
+     version, residual <= 1e-10; then the kernel at each leaf shape of
+     that factorization in f32, f64, c64 and c128 against its plain
+     version (the recursion to 1 x 1 on the card; rtol 1e-5 / 1e-12, the
+     same clamped pivots); then, at 27647 blocks of 16 columns and 64 of
+     32 in c128, the kernel and its plain version each captured as a CUDA
+     graph and replayed in turns beside the byte bound. Phase 13 also
+     requires every rank to have launched it.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed. With no CUDA device it raises at once. The line before the
@@ -1866,7 +1878,8 @@ def dist_held(ranks, ref, what):
     their type (the tail's atomics and the reductions sum in another
     order); and each rank's ridge checks against scipy. Returns the
     largest error of each kind."""
-    from hpclinalg_torch.tools.dist_checks import LAUNCH_COUNTERS
+    from hpclinalg_torch.tools.dist_checks import (LAUNCH_COUNTERS,
+                                                   LDL_LAUNCH_COUNTERS)
 
     world = len(ranks)
     errs = {}
@@ -2036,9 +2049,10 @@ def dist13_held(ranks, ref, what):
     rtol 1e-10, R and G 1e-12 of their largest entry), the same
     n_perturbed, growth and plan digest in every rank and the stacked
     run, the residuals within DIST13_RES, both factorizations on the
-    device engine, and every one of K1, K2, its gather mode and K3
-    launched. Returns the largest error of each result."""
-    from hpclinalg_torch.tools.dist_checks import LAUNCH_COUNTERS
+    device engine, and every one of K1, K2, its gather mode, K3 and the
+    LDLᵀ's leaf launched. Returns the largest error of each result."""
+    from hpclinalg_torch.tools.dist_checks import (LAUNCH_COUNTERS,
+                                                   LDL_LAUNCH_COUNTERS)
 
     world = len(ranks)
     errs = {}
@@ -2070,10 +2084,11 @@ def dist13_held(ranks, ref, what):
             check(ok, f"{what} rank {r}: {key[len('sol.'):]} equals the "
                   f"stacked run (rtol {rtol:g}, max_abs_err={err:.3e})")
             errs[name] = max(errs.get(name, 0.0), err)
-        launches = {k: int(out[f"sol.launches.{k}"]) for k in LAUNCH_COUNTERS}
+        launches = {k: int(out[f"sol.launches.{k}"])
+                    for k in LAUNCH_COUNTERS + LDL_LAUNCH_COUNTERS}
         check(all(v >= 1 for v in launches.values()),
-              f"{what} rank {r} launched K1, K2, K2's gather mode and K3: "
-              f"{launches}")
+              f"{what} rank {r} launched K1, K2, K2's gather mode, K3 and "
+              f"the LDLT's leaf: {launches}")
     if world == DIST_WORLD:
         owners = ranks[0]["sol.chol.owners"].tolist()
         cross = int(ranks[0]["sol.chol.cross"])
@@ -2101,6 +2116,7 @@ def phase13_solvers(ht, dev, card, times, mats):
     from hpclinalg_torch.parallel.launch import run_ranks
     from hpclinalg_torch.tools import dist_checks as dc
 
+    DIST13_LAUNCHES = dc.LAUNCH_COUNTERS + dc.LDL_LAUNCH_COUNTERS
     kw = {"k": DEV_K, "k_small": DEV_K_SMALL,
           "ridge_shape": (RIDGE_M, RIDGE_N, RIDGE_LAMBDA), "ycols": RIDGE_K,
           "seed": SEED}
@@ -2115,7 +2131,7 @@ def phase13_solvers(ht, dev, card, times, mats):
             ht.backend_auto(S, device=dev), mats=ridge, **kw))
         print(f"  stacked S={S} reference drive: {t:.1f} s", flush=True)
         torch.cuda.empty_cache()
-    launches = {k: {} for k in dc.LAUNCH_COUNTERS}
+    launches = {k: {} for k in DIST13_LAUNCHES}
     for transport, world in arrangements:
         what = f"{transport} world {world}"
         ranks, secs = timed_s(lambda: run_ranks(
@@ -2135,7 +2151,7 @@ def phase13_solvers(ht, dev, card, times, mats):
                  "eager, the gloo group refused by the capture")
               + f" ({sorted(refusals)[0][:60] or 'graphed'})")
         key = f"{transport}_world{world}"
-        for k in dc.LAUNCH_COUNTERS:
+        for k in DIST13_LAUNCHES:
             launches[k][key] = [int(r[f"sol.launches.{k}"]) for r in ranks]
         per_rank = {k[len("sol.time."):]: [float(r[k]) for r in ranks]
                     for k in ranks[0] if k.startswith("sol.time.")}
@@ -2154,9 +2170,9 @@ def phase13_solvers(ht, dev, card, times, mats):
                   "residuals": {k: [float(r[f"sol.check.{k}"]) for r in ranks]
                                 for k in DIST13_RES},
                   "launches": {k: launches[k][key]
-                               for k in dc.LAUNCH_COUNTERS},
+                               for k in DIST13_LAUNCHES},
                   "stacked_launches": {k: int(ref[f"sol.launches.{k}"])
-                                       for k in dc.LAUNCH_COUNTERS},
+                                       for k in DIST13_LAUNCHES},
                   "rank_secs": {k[len("sol.secs."):]: [
                       float(r[k]) for r in ranks]
                       for k in ranks[0] if k.startswith("sol.secs.")},
@@ -2470,6 +2486,175 @@ def phase16_cg_vec(ht, dev, card, timer, times):
     out["cg_update_xr"]["max_abs_err"] = e[2]
     out["cg_dots"]["max_dot_err"] = res["dot_err"]
     times["phase16"] = {"n": N, "dots": res["dots"], **out}
+    return out
+
+
+# ---- phase 17: the device LDLᵀ's leaf kernel ---------------------------------
+
+# the leaf's timed cases, (blocks, columns) in c128: helmholtz2d-512's
+# widest level (27,647 fronts of 16 columns) and a 32-column leaf of its
+# upper levels
+LEAF_TIMED = ((27647, 16), (64, 32))
+LEAF_RTOL = {torch.float32: 1e-5, torch.complex64: 1e-5,
+             torch.float64: 1e-12, torch.complex128: 1e-12}
+LEAF_EPS = 1e-10
+
+
+def leaf_blocks(B, n, dtype, dev, seed):
+    """B seeded n × n blocks, symmetric with the plain transpose, diagonally
+    dominant with alternating signs; in the first, entry (0, 0) is 1e-14
+    and its row and column zero, a pivot the clamp takes."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, n, n))
+    if dtype.is_complex:
+        M = M + 1j * rng.standard_normal((B, n, n))
+    M = M + np.swapaxes(M, 1, 2) + 3 * n * np.diag(
+        np.where(np.arange(n) % 2, -1.0, 1.0))
+    M[0, 0, :] = 0
+    M[0, :, 0] = 0
+    M[0, 0, 0] = 1e-14
+    return torch.from_numpy(M).to(dtype=dtype, device=dev)
+
+
+def leaf_held(F, eps, what):
+    """The kernel once on ``F`` against its plain version
+    (``device_mf._ldl_plain``, on the card): L and d within LEAF_RTOL of
+    the plain ones' largest entry, the same clamped pivots, exact zeros
+    above L's diagonal and ones on it. Returns (max |L - Lp|, max |d - dp|,
+    that over the plain one's largest entry, the clamped pivots)."""
+    from hpclinalg_torch.ops import cuda_ldl
+    from hpclinalg_torch.solver import device_mf
+
+    L, d, p = cuda_ldl.ldl_leaf(F, eps)
+    Lp, dp, pp = device_mf._ldl_plain(F, eps)
+    okL, eL = close(L, Lp, LEAF_RTOL[F.dtype])
+    okd, ed = close(d, dp, LEAF_RTOL[F.dtype])
+    rel = max(eL / float(Lp.abs().max()), ed / float(dp.abs().max()))
+    ones = torch.equal(torch.diagonal(L, dim1=-2, dim2=-1),
+                       torch.ones_like(d))
+    zeros = not bool(torch.triu(L, 1).any())
+    if not (okL and okd and int(p) == int(pp) and ones and zeros):
+        check(False, f"{what}: the kernel equals its plain version (L "
+              f"{eL:.3e}, d {ed:.3e}, clamped {int(p)} / {int(pp)}, unit "
+              f"diagonal {ones}, zeros above it {zeros})")
+    return eL, ed, rel, int(p)
+
+
+def phase17_ldl_leaf(ht, dev, card, timer, times):
+    """The device LDLᵀ's leaf kernel (``ops/cuda_ldl.py``): on the main
+    path, ldlt(method="device", spd=False) of Helmholtz(HELM_DEV_K) in c128
+    at S = 1 with the kernel's launch counter and the recorder's counters
+    set to 0 just before its factorization and solve and read just after
+    (its launches equal ``solver.ldl_leaf_kernels``; no plain base case)
+    and the leaves' shapes noted as they pass; then the kernel at each of
+    those shapes in the four types against its plain version
+    (``device_mf._ldl_plain`` on the card, LEAF_RTOL, equal clamped pivots);
+    then at LEAF_TIMED in c128 the kernel and the plain version, each
+    captured as a CUDA graph (as the factor graph holds them), replayed in
+    turns beside the byte bound (lower triangle read, L and d written,
+    once). Returns the kernel's record."""
+    import warnings
+
+    from hpclinalg_torch.ops import cuda_ldl
+    from hpclinalg_torch.solver import device_mf
+    from hpclinalg_torch.tools import dist_checks as dc
+    from hpclinalg_torch.utils import graphs, profiling
+
+    H = helmholtz(HELM_DEV_K)
+    rng = np.random.default_rng(SEED + 17)
+    bh = cplx_vec(rng, H.shape[0])
+    be = ht.backend_auto(1, dtype=np.complex128, device=dev)
+    A = ht.DistSparseMatrix.from_scipy(H, be)
+    b = ht.DistVector.from_global(bh, be)
+    leaf = device_mf._ldl_leaf
+    shapes = set()
+
+    def noted(F, *args):
+        shapes.add((int(np.prod(F.shape[:-2])), F.shape[-1]))
+        return leaf(F, *args)
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        cuda_ldl.ldl_leaf.launches = 0
+        profiling.reset_trace()
+        profiling.tracing(True)
+        with dc.patched(device_mf, _ldl_leaf=noted):
+            F = ht.ldlt(A, method="device", spd=False)
+            x = F.solve(b).to_numpy()
+        torch.cuda.synchronize()
+        profiling.tracing(False)
+    counters = profiling.trace_report()["counters"]
+    profiling.reset_trace()
+    launches = cuda_ldl.ldl_leaf.launches
+    res = rel_res(H, x, bh)
+    label = f"Helmholtz({HELM_DEV_K}) S=1 c128"
+    check(isinstance(F, device_mf.DeviceFactorization) and launches > 0
+          and launches == counters.get("solver.ldl_leaf_kernels")
+          and "solver.ldl_leaf_plain" not in counters and res <= 1e-10,
+          f"{label}: ldlt(method='device', spd=False) and its solve "
+          f"launched the leaf kernel {launches} times, "
+          f"solver.ldl_leaf_kernels {counters.get('solver.ldl_leaf_kernels')}"
+          f", no plain base case; {len(shapes)} leaf shapes, residual "
+          f"{res:.2e} <= 1e-10, n_perturbed {F.n_perturbed}")
+    del F
+    ht.clear_plan_cache("device_mf")
+
+    errs = {}
+    for dt in (torch.float32, torch.float64, torch.complex64,
+               torch.complex128):
+        worst = (0.0, 0.0, 0.0)
+        for i, (B, n) in enumerate(sorted(shapes)):
+            eps = torch.full((), LEAF_EPS, dtype=dt.to_real(), device=dev)
+            eL, ed, rel, clamped = leaf_held(
+                leaf_blocks(B, n, dt, dev, SEED + 17 + i), eps,
+                f"ldl_leaf {B} x {n} {dt}")
+            worst = tuple(map(max, worst, (eL, ed, rel)))
+        errs[str(dt)] = dict(zip(("L_abs", "d_abs", "rel"), worst))
+        check(True, f"ldl_leaf {dt}: every leaf shape of {label} equals "
+              f"its plain version (largest relative error "
+              f"{worst[2]:.3e} <= {LEAF_RTOL[dt]:g})")
+
+    cases = {}
+    for B, n in LEAF_TIMED:
+        dt = torch.complex128
+        F = leaf_blocks(B, n, dt, dev, SEED + 170 + n)
+        eps = torch.full((), LEAF_EPS, dtype=torch.float64, device=dev)
+        got = {}
+        for name, fn in (("kernel", lambda: cuda_ldl.ldl_leaf(F, eps)),
+                         ("plain", lambda: device_mf._ldl_plain(F, eps))):
+            fn()
+            torch.cuda.synchronize()
+            g, out, _ = graphs.record(fn, dev)
+            got[name] = (g, out)
+        ms, plain = timer.turns(got["kernel"][0].replay,
+                                got["plain"][0].replay)
+        torch.cuda.synchronize()
+        (Lk, dk, pk), (Lp, dp, pp) = got["kernel"][1], got["plain"][1]
+        okL, eL = close(Lk, Lp, LEAF_RTOL[dt])
+        okd, ed = close(dk, dp, LEAF_RTOL[dt])
+        check(okL and okd and int(pk) == int(pp),
+              f"ldl_leaf {B} x {n} c128: the replayed kernel equals the "
+              f"replayed plain version (L {eL:.3e}, d {ed:.3e}, clamped "
+              f"{int(pk)})")
+        nbytes = B * (n * (n + 1) // 2 + n * n + n) * F.element_size()
+        bms, by = case_line(f"ldl_leaf {B} x {n} c128 (graph replays)", ms,
+                            plain, None, nbytes, 0.0, dt, card)
+        cases[f"{B}x{n}_c128"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "kernel_nodes": graphs.graph_nodes(got["kernel"][0]),
+            "plain_nodes": graphs.graph_nodes(got["plain"][0]),
+            "L_abs_err": eL, "d_abs_err": ed}
+        del got, F
+    first = cases[f"{LEAF_TIMED[0][0]}x{LEAF_TIMED[0][1]}_c128"]
+    out = {"launches": launches, "leaf_shapes": sorted(shapes),
+           "residual": res, "max_abs_err": max(
+               max(e["L_abs"], e["d_abs"]) for e in errs.values()),
+           "max_err_by_dtype": errs, "cases": cases,
+           "ms": first["ms"], "plain_ms": first["plain_ms"],
+           "library_ms": None, "bound_ms": first["bound_ms"],
+           "bound_by": first["bound_by"]}
+    times["phase17"] = out
     return out
 
 
@@ -2934,6 +3119,14 @@ def main():
     cgk, t16 = timed_s(lambda: phase16_cg_vec(ht, dev, card, timer, times))
     print(f"phase 16 took {t16:.1f} s  [{card}]", flush=True)
 
+    # ---- phase 17: the device LDLᵀ's leaf kernel ---------------------------
+    print(f"phase 17: the device LDLT's leaf kernel (ldl_leaf) on the "
+          f"c128 factorization of Helmholtz({HELM_DEV_K}), at its leaf "
+          f"shapes in f32, f64, c64 and c128, and timed at {LEAF_TIMED} "
+          f"in c128 on {card}", flush=True)
+    ldk, t17 = timed_s(lambda: phase17_ldl_leaf(ht, dev, card, timer, times))
+    print(f"phase 17 took {t17:.1f} s  [{card}]", flush=True)
+
     f64 = torch.float64
     v4 = dv[2000]["v4"]
     streams = [dv[k][v] for k in dv for v in ("skern", "v3", "v5_d2", "v5_d3")]
@@ -3026,6 +3219,14 @@ def main():
         for k, what in (("cg_dots", "p.Ap, r.r"),
                         ("cg_update_xr", "x + alpha p, r - alpha Ap, r'.r'"),
                         ("cg_update_p", "r' + beta p"))
+    ] + [
+        {"name": "ldl_leaf (the device LDLT's base case)", "route": "cuda",
+         "source": "hpclinalg_torch/csrc/ldl_leaf.cu",
+         "replaces": "none: the JAX engine's recursion runs to 1 x 1 blocks "
+                     "(hpclinalg/solver/device_mf.py:452)",
+         "plain": "solver/device_mf._ldl_plain",
+         "dtypes": ["float32", "float64", "complex64", "complex128"],
+         "dist_solver_launches": sol_launches["ldl_leaf"], **ldk},
     ] + [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "dtypes": ["complex64", "complex128"],

@@ -13,7 +13,9 @@ staying distributed):
     assembly and the extend-add of the children's updates are static
     scatters over the shard axis; the front kernels are batched
     ``torch.linalg`` calls (Cholesky) or the recursive blocked unpivoted
-    LDLᵀ / LU below.
+    LDLᵀ / LU below; on the card the LDLᵀ's blocks of up to 32 columns are
+    one hand-written kernel a batch (``ops/cuda_ldl.py``), elsewhere its
+    plain version.
   * **Cross reduction**: local subtree roots scatter their updates into an
     (S, CROSS) buffer, summed over the shard axis once.
   * **Top phase**: the top tree is factored replicated.
@@ -65,6 +67,7 @@ import torch
 
 from ..backend import numpy_dtype, torch_dtype
 from ..config import round_up
+from ..ops import cuda_ldl
 from ..ops.cuda_ell import check_index
 from ..parallel import comm
 from ..utils import graphs
@@ -165,22 +168,78 @@ def _cat2x2(A11, A12, A21, A22):
                       torch.cat([A21, A22], dim=-1)], dim=-2)
 
 
+def _ldl_schur(L11, d1, F21, F22, out=None):
+    """The LDLᵀ's split step below factored columns (L11, d1): W = F21
+    L11⁻ᵀ, L21 = W D1⁻¹ (into ``out`` when given) and the Schur complement
+    F22 − L21 Wᵀ. Returns (L21, the complement)."""
+    W = _right_lower_t(L11, F21, unit=True)
+    L21 = torch.div(W, d1[..., None, :], out=out)
+    return L21, F22 - L21 @ W.mT
+
+
 def batched_ldl(F, eps):
     """Unpivoted LDLᵀ of a (..., n, n) symmetric batch (plain transpose —
     also valid complex-symmetric), reading only the lower triangle.
-    Returns (unit-lower L, d, n_perturbed)."""
+    Returns (unit-lower L, d, n_perturbed). Blocks of more than
+    ``cuda_ldl.LEAF`` columns split in two, written into one L and d
+    (``_ldl_blocked``); the blocks they leave are factored a batch by
+    ``_ldl_leaf``."""
+    if cuda_ldl.leaf_route(F.device, F.dtype):
+        eps = cuda_ldl.eps_tensor(eps, F.dtype, F.device)
+    # the splits leave L's blocks above their diagonal blocks unwritten
+    L = F.new_zeros(F.shape) if F.shape[-1] > cuda_ldl.LEAF \
+        else F.new_empty(F.shape)
+    d = F.new_empty(F.shape[:-1])
+    npert = torch.zeros((), dtype=torch.int64, device=F.device)
+    _ldl_blocked(F, eps, L, d, npert)
+    return L, d, npert
+
+
+def _ldl_blocked(F, eps, L, d, npert):
+    """The recursion of ``batched_ldl``, writing into views of one L (zero
+    above the diagonal blocks) and d, and adding the clamped pivots into
+    ``npert``: blocks of at most ``cuda_ldl.LEAF`` columns go to
+    ``_ldl_leaf``, larger ones split in two."""
+    n = F.shape[-1]
+    if n <= cuda_ldl.LEAF:
+        _ldl_leaf(F, eps, L, d, npert)
+        return
+    k = n // 2
+    _ldl_blocked(F[..., :k, :k], eps, L[..., :k, :k], d[..., :k], npert)
+    _, S22 = _ldl_schur(L[..., :k, :k], d[..., :k], F[..., k:, :k],
+                        F[..., k:, k:], out=L[..., k:, :k])
+    _ldl_blocked(S22, eps, L[..., k:, k:], d[..., k:], npert)
+
+
+def _ldl_leaf(F, eps, L, d, npert):
+    """A base case of ``batched_ldl``: a batch of blocks of at most
+    ``cuda_ldl.LEAF`` columns into the views L and d, the clamped pivots
+    added into ``npert``. On CUDA in a type of ``cuda_ldl.DTYPES`` one
+    launch of the hand-written kernel (``solver.ldl_leaf_kernels``);
+    elsewhere its plain version, ``_ldl_plain`` (``solver.ldl_leaf_plain``).
+    """
+    if cuda_ldl.leaf_route(F.device, F.dtype):
+        count("solver.ldl_leaf_kernels")
+        cuda_ldl.ldl_leaf(F, eps, L, d, npert)
+        return
+    count("solver.ldl_leaf_plain")
+    Lp, dp, p = _ldl_plain(F, eps)
+    L.copy_(Lp)
+    d.copy_(dp)
+    npert.add_(p)
+
+
+def _ldl_plain(F, eps):
+    """The LDLᵀ of ``batched_ldl`` recursing to 1 × 1 blocks, in plain
+    PyTorch: the hand-written leaf kernel's plain version."""
     n = F.shape[-1]
     if n == 1:
         d, npert = _clamp(F[..., 0, 0], eps)
         return torch.ones_like(F), d[..., None], npert
     k = n // 2
-    F11, F21, F22 = F[..., :k, :k], F[..., k:, :k], F[..., k:, k:]
-    L11, d1, p1 = batched_ldl(F11, eps)
-    # W = F21 L11^{-T};  L21 = W D1^{-1};  S = F22 - L21 Wᵀ
-    W = _right_lower_t(L11, F21, unit=True)
-    L21 = W / d1[..., None, :]
-    S22 = F22 - L21 @ W.mT
-    L22, d2, p2 = batched_ldl(S22, eps)
+    L11, d1, p1 = _ldl_plain(F[..., :k, :k], eps)
+    L21, S22 = _ldl_schur(L11, d1, F[..., k:, :k], F[..., k:, k:])
+    L22, d2, p2 = _ldl_plain(S22, eps)
     zt = F.new_zeros(F.shape[:-2] + (k, n - k))
     return _cat2x2(L11, zt, L21, L22), torch.cat([d1, d2], dim=-1), p1 + p2
 
@@ -223,9 +282,7 @@ def _front_kernel(kind, F, NC, eps):
         return (L11, L21), U, zero, (info != 0).sum()
     if kind == "ldl":
         L11, d, npert = batched_ldl(F11, eps)
-        W = _right_lower_t(L11, F21, unit=True)
-        L21 = W / d[..., None, :]
-        U = F22 - L21 @ W.mT
+        L21, U = _ldl_schur(L11, d, F21, F22)
         return (L11, d, L21), U, npert, zero
     F12 = F[..., :NC, NC:]
     L11, U11, npert = batched_lu(F11, eps)

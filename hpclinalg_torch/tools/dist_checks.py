@@ -934,20 +934,25 @@ LAUNCH_COUNTERS = ("dia", "ell", "gather", "resident")
 # the CG step's vector kernels (ops/cuda_cg.py), which only
 # entry.cg_step_fn's step launches
 CG_LAUNCH_COUNTERS = ("cg_dots", "cg_update_xr", "cg_update_p")
+# the device LDLᵀ's leaf kernel (ops/cuda_ldl.py), which only a device
+# factorization with spd=False launches
+LDL_LAUNCH_COUNTERS = ("ldl_leaf",)
 
 
 def _launchers() -> dict:
-    from ..ops import cuda_cg, cuda_dia, cuda_ell, cuda_ell_resident
+    from ..ops import cuda_cg, cuda_dia, cuda_ell, cuda_ell_resident, cuda_ldl
 
     return {"dia": cuda_dia.dia_spmv, "ell": cuda_ell.ell_spmv,
             "gather": cuda_ell.gather,
             "resident": cuda_ell_resident.ell_resident_spmv,
-            **{k: getattr(cuda_cg, k) for k in CG_LAUNCH_COUNTERS}}
+            **{k: getattr(cuda_cg, k) for k in CG_LAUNCH_COUNTERS},
+            **{k: getattr(cuda_ldl, k) for k in LDL_LAUNCH_COUNTERS}}
 
 
 def launch_counts() -> dict:
     """The kernels' launch counters: K1, K2, K2's gather mode, K3
-    (``LAUNCH_COUNTERS``) and the CG step's three (``CG_LAUNCH_COUNTERS``)."""
+    (``LAUNCH_COUNTERS``), the CG step's three (``CG_LAUNCH_COUNTERS``) and
+    the device LDLᵀ's leaf (``LDL_LAUNCH_COUNTERS``)."""
     return {k: f.launches for k, f in _launchers().items()}
 
 

@@ -441,15 +441,26 @@ def test_upper_triangle_never_read():
             torch.testing.assert_close(x, y, rtol=1e-14, atol=1e-14)
 
 
-@pytest.mark.parametrize("kind", ["ldl", "lu"])
-def test_batched_kernels_match_jax(kind):
+@pytest.mark.parametrize("kind,n", [("ldl", 11), ("lu", 11), ("ldl", 33),
+                                    ("lu", 33), ("ldl", 65), ("lu", 65)],
+                         ids=["ldl", "lu", "ldl-33", "lu-33", "ldl-65",
+                              "lu-65"])
+def test_batched_kernels_match_jax(kind, n):
     """batched_ldl / batched_lu on one batch, with pivots below eps so the
-    static-pivot clamp fires, against the JAX package's kernels."""
+    static-pivot clamp fires, against the JAX package's kernels; at 33 and
+    65 columns the splits above the card's leaf size (``cuda_ldl.LEAF``)
+    are held too. There the batch is diagonally dominant, with alternating
+    signs, and the tiny pivots' rows and columns are zero: a clamped pivot
+    coupled to the rest grows L to about 1e10, and the complements after it
+    are then cancellations that no two orders of summation agree on."""
     rng = np.random.default_rng(21)
-    n = 11
     F = rng.standard_normal((4, n, n))
     if kind == "ldl":
         F = F + np.swapaxes(F, 1, 2)
+    if n > 11:
+        F = F + 3 * n * np.diag(np.where(np.arange(n) % 2, -1.0, 1.0))
+        F[:, 0, 1:] = 0.0
+        F[:, 1:, 0] = 0.0
     F[:, 0, 0] = 1e-14
     F[1, 3, :] = 0.0
     F[1, :, 3] = 0.0

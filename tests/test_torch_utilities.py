@@ -231,6 +231,18 @@ def test_warmup_on_the_cpu():
     assert ht.Symmetric is ht.solver.api.Symmetric
 
 
+def test_warmup_builds_every_kernel_source():
+    """``build_kernels`` (warmup on the card) builds every ``csrc/*.cu``,
+    so no first real call runs nvcc."""
+    import os
+
+    from hpclinalg_torch.ops.cuda_build import CSRC_DIR
+    from hpclinalg_torch.utils.warmup import KERNEL_SOURCES
+
+    sources = {f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu")}
+    assert sorted(KERNEL_SOURCES) == sorted(sources)
+
+
 def test_process_rank_under_a_process_group(tmp_path):
     """With a torch.distributed group up, io0 and comm_rank read its rank."""
     import torch.distributed as dist
