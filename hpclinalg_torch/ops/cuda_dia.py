@@ -251,8 +251,7 @@ def complex_products(fn, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (vr xr - vi xi) + i (vr xi + vi xr). Two calls of ``fn`` when one
     operand is complex, four when both are. No kernel runs this way (each
     takes complex in one launch): the tests hold the complex plain versions
-    to it, and chip_smoke.py times the real K1 through it beside the
-    complex one."""
+    to it."""
     def parts(t):
         return (t.real, t.imag) if t.is_complex() else (t, None)
 

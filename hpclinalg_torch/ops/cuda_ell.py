@@ -53,9 +53,8 @@ def lanes_for(W: int, mean_len: float, itemsize: int) -> int:
     entry), the geometric mean of the mean stored row length and the
     width W. Short rows thus share a warp, and a pattern whose rows run to
     W (a power law) gives its long rows more lanes than its mean alone
-    would. (chip_smoke.py times every width from 1 to 32 on the random,
-    power-law, N and A matrices beside this choice; PERF.md has the
-    numbers.)"""
+    would. (PERF.md has the times of every width from 1 to 32 on the
+    random, power-law, N and A matrices beside this choice.)"""
     unit = unit_entries(W, itemsize)
     need = max(1, int(np.ceil(np.sqrt(max(mean_len, 1.0) * W) / unit)))
     p = 1

@@ -49,9 +49,9 @@ WINDOW_ALIGN = 4
 # Row tiles over all shards that tile_rows aims at. The kernel's persistent
 # grid gives each block a fixed share of the tiles, so the tile count
 # against the blocks the card holds at once decides how even that share is;
-# this count is the one chip_smoke.py's tile sweep favoured on N and the
-# ridge design A on the H100 (PERF.md). It is a tuned constant, not a figure
-# read from the card.
+# this count is the one a sweep of tile heights favoured on N and the ridge
+# design A on the H100 (PERF.md). It is a tuned constant, not a figure read
+# from the card.
 TILES = 1024
 MAX_PASSES = 8     # row passes a tile at most
 
@@ -60,9 +60,8 @@ def tile_rows(lanes: int, rows: int) -> int:
     """Rows of K3's tile for groups of ``lanes`` threads, ``rows`` rows in
     all shards: whole passes of the block (``rows_per_pass``), the fewest
     that leave at most TILES tiles, 1 to MAX_PASSES. One staged window
-    serves the whole tile. (chip_smoke.py times tiles of 1 to 16 passes on
-    N and on the ridge design A beside this choice; PERF.md has the
-    numbers.)"""
+    serves the whole tile. (PERF.md has the times of tiles of 1 to 16
+    passes on N and on the ridge design A beside this choice.)"""
     per = rows_per_pass(lanes)
     return per * max(1, min(MAX_PASSES, -(-rows // (per * TILES))))
 

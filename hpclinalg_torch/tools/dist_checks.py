@@ -1,6 +1,6 @@
 """Per-rank bodies of the distributed checks, run on every rank of a process
 group by ``tests/test_torch_dist*.py`` and ``tests/test_torch_entry.py``
-(gloo, CPU) and ``chip_smoke.py`` phases 12-15 (NCCL or gloo on the
+(gloo, CPU) and ``tests/test_torch_card_groups.py`` (NCCL or gloo on the
 card):
 
     from hpclinalg_torch.parallel.launch import run_ranks
@@ -19,7 +19,6 @@ in the same order on every rank, so every rank must run the same bodies.
 from __future__ import annotations
 
 import sys
-import time
 from contextlib import contextmanager
 from dataclasses import replace
 
@@ -329,18 +328,37 @@ def algebra(be, n: int = 40, seed: int = 7) -> dict:
 
 # -- CG and the host solve ---------------------------------------------------------
 
+def api_cg_step(A, x, r, p):
+    """One CG iteration with the port's public API: (x, r, p) -> the next
+    three DistVectors."""
+    Ap = A @ p
+    rr = r.dot(r)
+    alpha = rr / p.dot(Ap)
+    x = x + alpha * p
+    r2 = r - alpha * Ap
+    return x, r2, r2 + (r2.dot(r2) / rr) * p
+
+
+def api_cg(A, b, steps):
+    """``steps`` CG iterations from x = 0 with the port's public API;
+    returns (x, r)."""
+    x, r, p = type(b).zeros(b.n, b.backend), b, b
+    for _ in range(steps):
+        x, r, p = api_cg_step(A, x, r, p)
+    return x, r
+
+
 def cg(be, k: int = 16, steps: int = 20, seed: int = 5) -> dict:
-    """``steps`` CG iterations on laplace2d(k) from x = 0 (tools/ell_ab.cg),
-    in f64 and f32: the iterate and the residual."""
+    """``steps`` CG iterations on laplace2d(k) from x = 0 (``api_cg``), in
+    f64 and f32: the iterate and the residual."""
     import hpclinalg_torch as ht
-    from .ell_ab import cg as cg_steps
 
     out = {}
     bh = np.random.default_rng(seed).standard_normal(k * k)
     for dt in (np.float64, np.float32):
         bd = replace(be, dtype=dt)
         A = ht.DistSparseMatrix.from_scipy(laplace2d(k), bd)
-        x, r = cg_steps(A, ht.DistVector.from_global(bh, bd), steps)
+        x, r = api_cg(A, ht.DistVector.from_global(bh, bd), steps)
         tag = np.dtype(dt).name
         out.update({f"{tag}.x.local": x.data, f"{tag}.r.local": r.data,
                     f"{tag}.x.full": x.to_numpy(), f"{tag}.rnorm": r.norm()})
@@ -928,7 +946,7 @@ def meta(be) -> dict:
             "meta.hpclinalg": np.asarray("hpclinalg" in sys.modules)}
 
 
-# -- chip_smoke.py phase 12: the main path at full size, per rank -----------------
+# -- the main path at full size, per rank (tests/test_torch_card_groups.py) --
 
 LAUNCH_COUNTERS = ("dia", "ell", "gather", "resident")
 # the CG step's vector kernels (ops/cuda_cg.py), which only
@@ -961,42 +979,11 @@ def reset_launch_counts() -> None:
         f.launches = 0
 
 
-def events_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """The median over ``reps`` calls of ``fn`` of its CUDA-event time in
-    ms, each call timed alone (a collective waits for every rank)."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def host_ms(fn, reps: int = 200) -> float:
-    """The host's time in ms a call of ``fn`` over ``reps`` calls queued
-    without a wait (what the host spends enqueueing one call)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    ms = (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize()
-    return ms
-
-
 def card_matrices(k: int, n: int, ridge: tuple, seed: int) -> dict:
-    """chip_smoke.py's matrices (tools/matrices.py, its seeds): laplace2d(k)
-    (K1), the random n x 8 (K2 and its gather mode), the power law (K2's
-    tail), the ridge design A with its right-hand side and scipy's normal
-    matrix N = AᵀA + λI (K3), and phase 11's complex ones: the Helmholtz
+    """The card tests' matrices (tools/matrices.py, their seeds):
+    laplace2d(k) (K1), the random n x 8 (K2 and its gather mode), the power
+    law (K2's tail), the ridge design A with its right-hand side and scipy's
+    normal matrix N = AᵀA + λI (K3), and the complex ones: the Helmholtz
     operator on laplace2d(k) (K1 in c128) and the random matrix and N
     with seeded imaginary parts (K2 and K3 in c128)."""
     rm = ridge_matrices(ridge, seed)
@@ -1029,53 +1016,37 @@ CARD_PRODUCTS = {"lap": ("lap", None), "lap_f32": ("lap", np.float32),
                  "N_c128": ("N_c128", None)}
 
 
-def _first_s(be, fn):
-    """(fn(), the seconds it took, the device's queue drained)."""
-    sync = torch.cuda.synchronize if be.device.type == "cuda" else (
-        lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    return out, time.perf_counter() - t0
-
-
-def ridge(be, mats: dict, As: dict, lam: float,
-          steps: int) -> tuple[dict, dict]:
-    """chip_smoke.py phase 6's ridge path on this rank's shard: At =
-    A.T.materialize() (the transpose exchange), C = At @ A (the pair
-    SpGEMM), N = C.add_identity(λ), rhs = At @ b (K2), ``steps`` CG steps
-    on N (K3) for x, A @ x (K3); the refit A.with_values(1.5 A.nzval),
-    whose products must reuse every plan; laplace2d(k) + the random
-    matrix (an addition across patterns), diag and triu of laplace2d(k);
-    and the c128 transpose of A's values times (0.6 - 0.8i) and the c128
-    Helmholtz operator plus the random c128 matrix (``As``: ``card``'s
-    matrices, which hold the last four). Returns (results, the matrices
-    the caller times), each result under ``ridge.``; ``check.ridge_*`` are this rank's
-    checks against scipy (relative errors, the pattern)."""
+def ridge(be, mats: dict, As: dict, lam: float, steps: int) -> dict:
+    """The ridge path on this rank's shard: At = A.T.materialize() (the
+    transpose exchange), C = At @ A (the pair SpGEMM), N =
+    C.add_identity(λ), rhs = At @ b (K2), ``steps`` CG steps on N (K3) for
+    x, A @ x (K3); the refit A.with_values(1.5 A.nzval), whose products
+    must reuse every plan; laplace2d(k) + the random matrix (an addition
+    across patterns), diag and triu of laplace2d(k); and the c128
+    transpose of A's values times (0.6 - 0.8i) and the c128 Helmholtz
+    operator plus the random c128 matrix (``As``: ``card``'s matrices,
+    which hold the last four). Returns the results, each under
+    ``ridge.``; ``check.ridge_*`` are this rank's checks against scipy
+    (relative errors, the pattern)."""
     import hpclinalg_torch as ht
     from ..ops import spgemm as spgemm_mod
-    from .ell_ab import cg as cg_steps
 
     Ad = ht.DistSparseMatrix.from_scipy(mats["design"], be)
     b = ht.DistVector.from_global(mats["design_b"], be)
-    out = {}
-    At, out["time.transpose_first_s"] = _first_s(be, lambda: Ad.T.materialize())
-    C, out["time.spgemm_first_s"] = _first_s(be, lambda: At @ Ad)
-    N, out["time.add_identity_first_s"] = _first_s(
-        be, lambda: C.add_identity(lam))
+    At = Ad.T.materialize()
+    C = At @ Ad
+    N = C.add_identity(lam)
     rhs = At @ b
     # N's condition number is near 3: the CG steps reach the direct
-    # solution (phase 6 holds them to ldlt(N)'s to 1e-11); the host ldlt
-    # on a group is card()'s solves
-    x, _ = cg_steps(N, rhs, steps)
+    # solution (the stacked ridge test holds them to ldlt(N)'s to 1e-11);
+    # the host ldlt on a group is card()'s solves
+    x, _ = api_cg(N, rhs, steps)
     y = Ad @ x
-    out.update({"ridge.At.local": At.nzval, "ridge.C.local": C.nzval,
-                "ridge.N.local": N.nzval, "ridge.rhs.local": rhs.data,
-                "ridge.x.local": x.data, "ridge.Ax.local": y.data,
-                "ridge.spgemm.engine": spgemm_mod.engine(At, Ad),
-                "ridge.spgemm.nchunks":
-                    spgemm_mod.get_spgemm_plan(At, Ad).nchunks})
+    out = {"ridge.At.local": At.nzval, "ridge.C.local": C.nzval,
+           "ridge.N.local": N.nzval, "ridge.rhs.local": rhs.data,
+           "ridge.x.local": x.data, "ridge.Ax.local": y.data,
+           "ridge.spgemm.engine": spgemm_mod.engine(At, Ad),
+           "ridge.spgemm.nchunks": spgemm_mod.get_spgemm_plan(At, Ad).nchunks}
     Nh, Nsc = N.to_scipy(), mats["N"]
     xh, rh = x.to_numpy(), rhs.to_numpy()
     out.update({
@@ -1095,7 +1066,7 @@ def ridge(be, mats: dict, As: dict, lam: float,
                 "ridge.C2.local": C2.nzval})
 
     lap, r8 = As["lap"], As["random8"]
-    S, out["time.add_first_s"] = _first_s(be, lambda: lap + r8)
+    S = lap + r8
     out.update({"ridge.add.local": S.nzval, "ridge.add.hash": S.hash,
                 "ridge.diag.local": lap.diag().data,
                 "ridge.triu.local": lap.triu().nzval})
@@ -1103,14 +1074,14 @@ def ridge(be, mats: dict, As: dict, lam: float,
     out.update({"ridge.At_c128.local": Ac.T.materialize().nzval,
                 "ridge.add_c128.local": (As["helm"] + As["random8_c128"])
                 .nzval})
-    return out, {"A": Ad, "At": At, "C": C}
+    return out
 
 
 def card(be, k: int = 1000, n: int = 1_000_000,
          ridge_shape: tuple = (1_000_000, 16_384, 1e-2), k_solve: int = 256,
          steps: int = 20, ridge_steps: int = 50, seed: int = 0,
          mats: dict | None = None) -> dict:
-    """The main path on this rank's shard at chip_smoke.py's sizes: ``A @
+    """The main path on this rank's shard at the card tests' sizes: ``A @
     x`` on laplace2d(k) in f64 and f32 (K1, the halo exchange), ``steps``
     CG steps and a dot in each, ``A @ x`` on the random and power-law
     matrices (K2, its gather mode and tail), on N (K3) and, in c128, on
@@ -1121,20 +1092,11 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     ``ht.solve`` twice on that pattern. Every plan cache is cleared
     first, so the first calls build their plans in every drive. The
     kernels' launch counters are set to 0 just before and read just after
-    (``launches.*``). On a CUDA device it then times the CG step
-    (``tools/ell_ab.cg_step_ms``), the random matrix's exchange alone,
-    the ridge's cached transpose, SpGEMM and add_identity, and on a group
-    an ``all_reduce`` of a scalar (and where its host time goes,
-    ``host_profile``) and an ``all_to_all_single`` of 2^16 doubles to
-    each rank. ``mats``:
-    ``card_matrices``' result, if the caller has it."""
+    (``launches.*``). ``mats``: ``card_matrices``' result, if the caller
+    has it."""
     import hpclinalg_torch as ht
     from ..ops import spmv as spmv_mod
-    from ..parallel import comm
-    from .ell_ab import cg as cg_steps
-    from .ell_ab import cg_step_ms
 
-    t0 = time.perf_counter()
     ht.clear_plan_cache()
     mats = mats or card_matrices(k, n, ridge_shape, seed)
     rng = np.random.default_rng(seed)
@@ -1158,8 +1120,7 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     if be.device.type == "cuda":
         torch.cuda.synchronize()
 
-    out = {"secs.setup": time.perf_counter() - t0}
-    t0 = time.perf_counter()
+    out = {}
     reset_launch_counts()
     for name, A in As.items():
         ex = plans[name].exchange
@@ -1170,16 +1131,11 @@ def card(be, k: int = 1000, n: int = 1_000_000,
     for name in ("lap", "lap_f32"):
         A, x = As[name], xs[name]
         b = ht.DistVector.from_global(bh, x.backend)
-        xcg, rc = cg_steps(A, b, steps)
+        xcg, rc = api_cg(A, b, steps)
         out.update({f"{name}.y.full": (A @ x).to_numpy(),
                     f"{name}.dot": x.dot(b), f"{name}.cg.local": xcg.data,
                     f"{name}.cg.rnorm": rc.norm()})
-    out["secs.products_cg"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res, rm = ridge(be, mats, As, ridge_shape[2], ridge_steps)
-    out.update(res)
-    out["secs.ridge"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    out.update(ridge(be, mats, As, ridge_shape[2], ridge_steps))
     xsol = ht.ldlt(Ls).solve(bs)
     out.update({"solve.local": xsol.data, "solve.full": xsol.to_numpy()})
     ht.clear_plan_cache("backslash")
@@ -1188,40 +1144,6 @@ def card(be, k: int = 1000, n: int = 1_000_000,
                 "solve.bs.entries": len(ht.BackslashCache._cache())})
     ht.clear_plan_cache("backslash")
     out.update({f"launches.{k}": v for k, v in launch_counts().items()})
-    out["secs.solves"] = time.perf_counter() - t0
-
-    if be.device.type == "cuda":
-        b = ht.DistVector.from_global(bh, be)
-        step = cg_step_ms(As["lap"], b)
-        ex = plans["random8"].exchange
-        x8 = xs["random8"].data
-        A, At, C = rm["A"], rm["At"], rm["C"]
-        lam = ridge_shape[2]
-        out.update({"time.cg_step_ms": step["step_ms"],
-                    "time.cg_host_enqueue_ms": step["host_enqueue_ms"],
-                    "time.exchange_random8_ms": events_ms(
-                        lambda: ex.apply(x8)),
-                    "time.dot_host_ms": host_ms(lambda: b.dot(b)),
-                    "time.transpose_values_ms": events_ms(
-                        lambda: A.with_values(A.nzval)
-                        .transpose_materialized()),
-                    "time.spgemm_values_ms": events_ms(lambda: At @ A),
-                    "time.add_identity_ms": events_ms(
-                        lambda: C.add_identity(lam))})
-        if be.is_dist:
-            one = torch.ones((), dtype=torch.float64, device=be.device)
-            buf = torch.ones(be.world << 16, dtype=torch.float64,
-                             device=be.device)
-            splits = [1 << 16] * be.world
-            out.update({
-                "time.all_reduce_ms": events_ms(
-                    lambda: comm.all_reduce(be, one.clone()), reps=100),
-                "time.all_reduce_host_ms": host_ms(
-                    lambda: comm.all_reduce(be, one.clone())),
-                "time.all_to_all_64k_ms": events_ms(
-                    lambda: comm.all_to_all_v(be, buf, splits, splits)),
-                "profile.all_reduce": host_profile(
-                    lambda: comm.all_reduce(be, one.clone()))})
     return {f"card.{k}": _np(v) for k, v in out.items()}
 
 
@@ -1232,33 +1154,24 @@ def _rel_res(M, x, b) -> float:
 def solvers(be, k: int = 512, k_small: int = 256,
             ridge_shape: tuple = (1_000_000, 16_384, 1e-2), ycols: int = 64,
             seed: int = 0, mats: dict | None = None) -> dict:
-    """chip_smoke.py phase 13 on this rank's shard, f64 unless said, with
-    the host fallback's warning made an error: ``ldlt(method="device",
-    spd=True)`` of laplace2d(k) and its solve; the indefinite ``ldlt`` of
-    laplace2d(k_small) - sigma I, ``lu`` of laplace2d(k_small) with
-    unsymmetric values and its transposed solve, and the c128 ``ldlt`` of
-    Helmholtz(k_small); then the multi-response ridge on ``mats``'
-    design and N (``ridge_matrices``): Y (m x ``ycols``) a
-    DistDenseMatrix, R = At @ Y (SpMM), X = ldlt(N, method="device",
-    spd=True).solve_matrix(R), G = X.T @ X (the dense transpose), and the
-    single response x = solve(At @ b). Every plan cache is cleared first;
-    the kernels' launch counters are set to 0 just before the drive and
-    read just after (``launches.*``). ``check.*`` are this rank's
-    residuals against scipy (the ridge's through N's SpMM). On a CUDA
-    device it then times the Cholesky's engine factor (CUDA events and the
-    host's enqueue time), its solve, an ``all_reduce`` of a cross buffer
-    (events and host time), R = At @ Y and the multi-RHS solve, and where
-    the factorization is graphed (``refusal`` "": NCCL or stacked) its
-    factor graph's call and its solve graph's call (events and host
-    time)."""
+    """The device solver and the dense containers on this rank's shard,
+    f64 unless said, with the host fallback's warning made an error:
+    ``ldlt(method="device", spd=True)`` of laplace2d(k) and its solve; the
+    indefinite ``ldlt`` of laplace2d(k_small) - sigma I, ``lu`` of
+    laplace2d(k_small) with unsymmetric values and its transposed solve,
+    and the c128 ``ldlt`` of Helmholtz(k_small); then the multi-response
+    ridge on ``mats``' design and N (``ridge_matrices``): Y (m x
+    ``ycols``) a DistDenseMatrix, R = At @ Y (SpMM), X = ldlt(N,
+    method="device", spd=True).solve_matrix(R), G = X.T @ X (the dense
+    transpose), and the single response x = solve(At @ b). Every plan
+    cache is cleared first; the kernels' launch counters are set to 0 just
+    before the drive and read just after (``launches.*``). ``check.*`` are
+    this rank's residuals against scipy (the ridge's through N's SpMM)."""
     import warnings
 
     import hpclinalg_torch as ht
-    from ..parallel import comm
-    from ..parallel.mesh import allgather_full
-    from ..solver.device_mf import DeviceFactorization, _pert_eps
+    from ..solver.device_mf import DeviceFactorization
 
-    t0 = time.perf_counter()
     ht.clear_plan_cache()
     mats = mats or ridge_matrices(ridge_shape, seed)
     rng = np.random.default_rng(seed + 30)
@@ -1276,7 +1189,7 @@ def solvers(be, k: int = 512, k_small: int = 256,
     A = ht.DistSparseMatrix.from_scipy(L, be)
     b = ht.DistVector.from_global(bh, be)
     systems = {name: ht.DistSparseMatrix.from_scipy(M, be)
-           for name, M in (("ldl", Nind), ("lu", Lu), ("c128", H))}
+               for name, M in (("ldl", Nind), ("lu", Lu), ("c128", H))}
     b2 = ht.DistVector.from_global(b2h, be)
     bc = ht.DistVector.from_global(bch, be)
     Ad = ht.DistSparseMatrix.from_scipy(mats["design"], be)
@@ -1287,14 +1200,12 @@ def solvers(be, k: int = 512, k_small: int = 256,
     if be.device.type == "cuda":
         torch.cuda.synchronize()
 
-    out = {"secs.setup": time.perf_counter() - t0}
-    t0 = time.perf_counter()
+    out = {}
     reset_launch_counts()
     with warnings.catch_warnings():
         warnings.filterwarnings("error",
                                 message="device multifrontal unavailable")
-        F, out["time.chol_first_s"] = _first_s(
-            be, lambda: ht.ldlt(A, method="device", spd=True))
+        F = ht.ldlt(A, method="device", spd=True)
         x = F.solve(b)
         out.update({"chol.device": isinstance(F, DeviceFactorization),
                     "chol.x.local": x.data,
@@ -1317,12 +1228,9 @@ def solvers(be, k: int = 512, k_small: int = 256,
                             "check.lu_t_res": _rel_res(
                                 Lu.T, xt.to_numpy(), b2h)})
             del Fs
-        secs = time.perf_counter() - t0
-        t0 = time.perf_counter()
         At = Ad.T.materialize()
         R = At @ Yd
-        FN, out["time.ridge_chol_first_s"] = _first_s(
-            be, lambda: ht.ldlt(Nr, method="device", spd=True))
+        FN = ht.ldlt(Nr, method="device", spd=True)
         X = FN.solve_matrix(R)
         G = X.T @ X
         rhs = At @ bd
@@ -1337,87 +1245,42 @@ def solvers(be, k: int = 512, k_small: int = 256,
                                              / rhs.norm()),
                     **_factor_stats(FN, "ridge_chol")})
     out.update({f"launches.{k}": v for k, v in launch_counts().items()})
-    out.update({"secs.solvers": secs, "secs.ridge": time.perf_counter() - t0})
-
-    if be.device.type == "cuda":
-        eng = F.engine
-        nnzb = np.concatenate([[0], np.cumsum(A.structure.nnz_local)])
-        Avals = allgather_full(A.nzval, nnzb, be)
-        eps = 1e-10 * float(Avals.abs().max())
-        buf = torch.zeros(eng.CROSS, dtype=eng.dtype, device=be.device)
-        out.update({
-            "time.chol_factor_ms": events_ms(lambda: eng.factor(Avals, eps),
-                                             reps=10),
-            "time.chol_factor_host_ms": host_ms(
-                lambda: eng.factor(Avals, eps), reps=10),
-            "time.chol_solve_ms": events_ms(lambda: F.solve(b, refine=0),
-                                            reps=10),
-            "time.cross_all_reduce_ms": events_ms(
-                lambda: comm.all_reduce(be, buf)),
-            "time.cross_all_reduce_host_ms": host_ms(
-                lambda: comm.all_reduce(be, buf), reps=50),
-            "time.ridge_AtY_ms": events_ms(lambda: At @ Yd, reps=5, warm=1),
-            "time.ridge_solve_matrix_ms": events_ms(
-                lambda: FN.solve_matrix(R), reps=3, warm=1)})
-        if F.refusal is None:
-            eps_t = _pert_eps(Avals, torch.float64)
-            out.update({
-                "time.chol_factor_graph_ms": events_ms(
-                    lambda: F._factor_graph(Avals, eps_t), reps=10),
-                "time.chol_factor_graph_host_ms": host_ms(
-                    lambda: F._factor_graph(Avals, eps_t), reps=10),
-                "time.chol_solve_graph_ms": events_ms(
-                    lambda: F._solve_dist(b.data, False), reps=10),
-                "time.chol_solve_graph_host_ms": host_ms(
-                    lambda: F._solve_dist(b.data, False), reps=10)})
     return {f"sol.{k}": _np(v) for k, v in out.items()}
 
 
-# -- chip_smoke.py phase 14: the KKT assembly at full width, per rank ----------
+# -- the KKT assembly at full width, per rank (tests/test_torch_card_groups.py)
 
 def assembly(be, k: int = 1000, m: int = 10_000, seed: int = 30,
              trace_dir: str | None = None) -> dict:
-    """``tools/kkt.drive`` on this rank's shard at chip_smoke.py phase 10's
-    width (K = [[A, Bᵀ], [B, −10⁻⁶ I]], A = laplace2d(k), B m x k² with 16
-    entries a row, ``kkt.Inputs(k, m, seed)`` built in every rank), every
-    step held against scipy in this rank (a failing check raises), its one
-    traced ``K @ z`` written to ``trace_dir``. The kernels' launch
-    counters are set to 0 just before the drive and read just after
-    (``launches.*``). Returns the drive's engines, its first (plan build)
-    and cached times (``time.*``) and its step seconds (``step.*``)."""
+    """``tools/kkt.drive`` on this rank's shard (K = [[A, Bᵀ], [B, −10⁻⁶
+    I]], A = laplace2d(k), B m x k² with 16 entries a row,
+    ``kkt.Inputs(k, m, seed)`` built in every rank), every step held
+    against scipy in this rank (a failing check raises), its one traced
+    ``K @ z`` written to ``trace_dir``. The kernels' launch counters are
+    set to 0 just before the drive and read just after (``launches.*``).
+    Returns the drive's engines."""
     from . import kkt
 
-    t0 = time.perf_counter()
     I = kkt.Inputs(k, m, seed)
-    out = {"secs.inputs": time.perf_counter() - t0}
     reset_launch_counts()
-    res, secs = kkt._timed(lambda: kkt.drive(be, I, trace_dir=trace_dir))
-    out.update({f"launches.{c}": v for c, v in launch_counts().items()})
-    out["secs.drive"] = secs
-    for key, v in res.items():
-        if key == "steps_s":
-            out.update({f"step.{st}": t for st, t in v.items()})
-        elif isinstance(v, str):
-            out[key] = v
-        else:
-            out[f"time.{key}"] = v
+    res = kkt.drive(be, I, trace_dir=trace_dir)
+    out = {f"launches.{c}": v for c, v in launch_counts().items()}
+    out.update({key: v for key, v in res.items() if isinstance(v, str)})
     return {f"asm.{key}": _np(v) for key, v in out.items()}
 
 
-# -- the raw CG step (hpclinalg_torch.entry): tests, tools/cg_graph.py and
-# chip_smoke.py phase 15 --
+# -- the raw CG step (hpclinalg_torch.entry): the CPU tests and the card's --
 
 def raw_steps(step, args, steps: int, graphed: bool) -> dict:
     """``steps`` eager steps of ``step`` (``entry.cg_step_fn``) chained from
     ``args``, the launch counters set to 0 just before them and read just
     after everything below: {"out": the last (x, r, p), "launches": {kernel:
-    count}, and "graph" with "capture_s" or "refused"}. ``graphed``: the
-    step is also captured (``entry.capture``, ``capture_s`` seconds) and
-    replayed ``steps`` times from ``args``, which must equal the eager
-    steps bit for bit (they launch the same kernels in the same order; a
-    check that raises); else ``capture`` must refuse the step (CPU
-    tensors, a gloo group) with ValueError, whose message is
-    ``refused``."""
+    count}, and "graph" or "refused"}. ``graphed``: the step is also
+    captured (``entry.capture``) and replayed ``steps`` times from
+    ``args``, which must equal the eager steps bit for bit (they launch
+    the same kernels in the same order; a check that raises); else
+    ``capture`` must refuse the step (CPU tensors, a gloo group) with
+    ValueError, whose message is ``refused``."""
     from ..entry import capture
 
     reset_launch_counts()
@@ -1426,10 +1289,7 @@ def raw_steps(step, args, steps: int, graphed: bool) -> dict:
         out = step(*out)
     res = {"out": out}
     if graphed:
-        t0 = time.perf_counter()
         graph = capture(step, args)
-        torch.cuda.synchronize()
-        res["capture_s"] = time.perf_counter() - t0
         rep = args
         for _ in range(steps):
             rep = graph(*rep)
@@ -1449,19 +1309,16 @@ def raw_steps(step, args, steps: int, graphed: bool) -> dict:
 
 
 def entry_steps(be, k: int = 16, steps: int = 20, seed: int = 5,
-                dtypes: tuple = ("float64", "float32"), graphed: bool = False,
-                timed: bool = False) -> dict:
+                dtypes: tuple = ("float64", "float32"),
+                graphed: bool = False) -> dict:
     """``entry.cg_step_fn`` on laplace2d(k) in each of ``dtypes``: ``steps``
     raw steps from x = 0, r = p = b (seeded standard normals) through
     ``raw_steps`` (``graphed``: also captured and replayed, bit for bit;
     else ``capture`` must refuse, ``<dtype>.refused``), their x, r and p
     (``<dtype>.{x,r,p}.local``), the engine and the launches
-    (``launches.<dtype>.*``). ``timed`` (a CUDA device): the wall and host
-    time a step of the eager step and, graphed, of the replay
-    (``timing.chain_ms``)."""
+    (``launches.<dtype>.*``)."""
     import hpclinalg_torch as ht
     from ..entry import cg_step_fn
-    from .timing import chain_ms
 
     out = {}
     bh = np.random.default_rng(seed).standard_normal(k * k)
@@ -1480,61 +1337,7 @@ def entry_steps(be, k: int = 16, steps: int = 20, seed: int = 5,
             out[f"{dt}.refused"] = res["refused"]
         out.update({f"launches.{dt}.{c}": v
                     for c, v in res["launches"].items()})
-        if timed:
-            runs = {"eager": (step, args)}
-            if graphed:
-                runs["graphed"] = (res["graph"],
-                                   tuple(a.clone() for a in args))
-            for name, t in chain_ms(runs).items():
-                out[f"time.{dt}.{name}_step_ms"] = t["step_ms"]
-                out[f"time.{dt}.{name}_host_ms"] = t["host_ms"]
     return {f"entry.{k}": _np(v) for k, v in out.items()}
-
-
-def host_profile(fn, calls: int = 200, top: int = 12) -> str:
-    """Where the host time of ``fn`` goes, over ``calls`` calls queued
-    without a wait, as JSON: the ``top`` Python functions by their own
-    time under cProfile (which sees no time inside a pybind11 method: it
-    counts as its caller's own) and the ``top`` operators by their own
-    CPU time under ``torch.profiler`` (CPU activity only), each with its
-    µs and its calls per call of ``fn``; and the µs a call under each
-    profiler (its own cost included)."""
-    import cProfile
-    import json
-    import os
-    import pstats
-
-    fn()
-    torch.cuda.synchronize()
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    for _ in range(calls):
-        fn()
-    prof.disable()
-    per_call_us = (time.perf_counter() - t0) * 1e6 / calls
-    torch.cuda.synchronize()
-    stats = pstats.Stats(prof).stats
-    rows = sorted(((tt, nc, f"{os.path.basename(f)}:{line}({name})")
-                   for (f, line, name), (_cc, nc, tt, _ct, _callers)
-                   in stats.items()), reverse=True)[:top]
-    act = torch.profiler.ProfilerActivity.CPU
-    with torch.profiler.profile(activities=[act]) as tprof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch_us = (time.perf_counter() - t0) * 1e6 / calls
-    torch.cuda.synchronize()
-    ops = sorted(tprof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                 reverse=True)[:top]
-    return json.dumps({"profiled_us_per_call": per_call_us,
-                       "self_us_per_call": [
-                           [where, tt * 1e6 / calls, nc / calls]
-                           for tt, nc, where in rows],
-                       "torch_profiled_us_per_call": torch_us,
-                       "op_self_us_per_call": [
-                           [e.key, e.self_cpu_time_total / calls,
-                            e.count / calls] for e in ops]})
 
 
 def checks(be) -> dict:
@@ -1542,6 +1345,19 @@ def checks(be) -> dict:
     out = {}
     for body in (vectors, exchange, spmv, cg, solves, utilities, group_ops):
         out.update(body(be))
+    return out
+
+
+def bodies(be, runs: list) -> dict:
+    """The bodies ``runs`` names, [(body, kwargs)], in order in one process,
+    every plan cache cleared before each: the card tests' bodies at full
+    size with one spawn of the ranks."""
+    import hpclinalg_torch as ht
+
+    out = {}
+    for body, kwargs in runs:
+        ht.clear_plan_cache()
+        out.update(BODIES[body](be, **kwargs))
     return out
 
 
@@ -1600,7 +1416,7 @@ BODIES = {"checks": checks, "vectors": vectors, "exchange": exchange,
           "solver_checks": solver_checks, "chol_failure": chol_failure,
           "solvers": solvers, "assembly_checks": assembly_checks,
           "assembly": assembly, "entry_steps": entry_steps,
-          "comm_counts": comm_counts}
+          "comm_counts": comm_counts, "bodies": bodies}
 
 
 def on_rank(device: str, body: str, kwargs: dict) -> dict:

@@ -8,19 +8,10 @@ impose Dirichlet rows and take submatrices for block preconditioners.
 nodes), B m × n with ``per_row`` N(0, 1) entries a row at random columns,
 δ = 1e-6. On a process group (``backend_dist``) every rank runs it on its
 own shard and holds each step against scipy itself
-(``tools/dist_checks.assembly``, ``chip_smoke.py`` phase 14).
-``tests/test_torch_slice.py`` and ``tests/test_torch_dist_assembly.py``
-drive it at a small size on the CPU; on the card
-
-    python -m hpclinalg_torch.tools.kkt [k=1000] [m=10000] [--trace DIR]
-
-drives it at S = 1 and 4 (``chip_smoke.py`` phase 10 runs this in a
-process of its own, so that its profiler sessions are the process's
-first: later sessions in a process may record no device activity, and a
-busy share is then "not measured") and prints, as its last line, one
-JSON object with each shard count's first (plan build) and cached times,
-the cached pass's busy share and largest kernels, and the launches of K1,
-K2, K2's gather mode and K3 over the drives.
+(``tools/dist_checks.assembly``). ``tests/test_torch_slice.py`` and
+``tests/test_torch_dist_assembly.py`` drive it at a small size on the CPU,
+``tests/test_torch_card_algebra.py`` and ``tests/test_torch_card_groups.py``
+at k = 1000, m = 10⁴ on the card.
 """
 
 from __future__ import annotations
@@ -177,15 +168,6 @@ def blocks(be, I: Inputs):
 
     return [ht.DistSparseMatrix.from_scipy(M, be)
             for M in (I.A, I.Bt, I.B, I.C)]
-
-
-def cached_pass(parts, z, w, n):
-    """The device work of the assembly once every plan is built: cat, K @ z,
-    K.T @ w, K[0:n, 0:n] and K.sum(axis=0)."""
-    import hpclinalg_torch as ht
-
-    K = ht.cat(*parts, dims=(2, 2))
-    return K @ z, K.T @ w, K[0:n, 0:n], K.sum(axis=0)
 
 
 # a piece of the name of each SpMV engine's kernel, for the trace check
@@ -384,102 +366,3 @@ def drive(be, I: Inputs, check=check, trace_dir=None):
     _, out["warmup_s"] = _timed(lambda: ht.warmup(be))
     done("warmup")
     return out
-
-
-def busy(fn, top=6):
-    """(device ms, kernels and copies, busy share of the wall time, the
-    ``top`` largest by name [(name, µs)]) of ``fn`` on the card, from a
-    torch.profiler trace; the wall time is the best of three untraced
-    runs. The times are None (not measured) when the trace recorded no
-    device activity."""
-    from .ell_ab import device_events
-
-    walls = []
-    for _ in range(3):
-        _, t = _timed(fn)
-        walls.append(t)
-    events = device_events(fn)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            us += b - max(a, end)
-            end = b
-    by = {}
-    for e in events:
-        nm = e.name.replace("void ", "").split("(")[0][:60]
-        by[nm] = by.get(nm, 0.0) + e.time_range.end - e.time_range.start
-    largest = sorted(by.items(), key=lambda kv: -kv[1])[:top]
-    if not spans:
-        return None, 0, None, []
-    return (us / 1e3, len(spans), us / 1e3 / (min(walls) * 1e3),
-            [(nm, round(t, 1)) for nm, t in largest])
-
-
-def main(argv=None) -> dict:
-    import sys
-
-    import hpclinalg_torch as ht
-    from ..ops import cuda_dia, cuda_ell, cuda_ell_resident
-    from ..utils.warmup import build_kernels
-    from .timing import card, require_cuda
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    trace = None
-    if "--trace" in argv:
-        i = argv.index("--trace")
-        trace = argv[i + 1]
-        del argv[i: i + 2]
-    k = int(argv[0]) if argv else 1000
-    m = int(argv[1]) if len(argv) > 1 else 10_000
-    dev = require_cuda()
-    name = card()
-    build_kernels()
-
-    def say(cond, what):
-        check(cond, what)
-        print(f"  ok: {what}", flush=True)
-
-    I, t_in = _timed(lambda: Inputs(k, m, seed=30))
-    print(f"  inputs and scipy references: {t_in:.2f} s (host); K "
-          f"{I.K.shape[0]} rows, {I.K.nnz} nnz", flush=True)
-    counters = {"dia": cuda_dia.dia_spmv, "ell": cuda_ell.ell_spmv,
-                "gather": cuda_ell.gather,
-                "resident": cuda_ell_resident.ell_resident_spmv}
-    for f in counters.values():
-        f.launches = 0
-    record = {"card": name}
-    for S in (1, 4):
-        be = ht.backend_auto(S, dtype=np.float64, device=dev)
-        out, t = _timed(lambda: drive(
-            be, I, check=say,
-            trace_dir=None if trace is None else f"{trace}/kkt_S{S}"))
-        # the device work of the assembly once every plan is built
-        parts = blocks(be, I)
-        z = ht.DistVector.from_global(I.z, be)
-        w = ht.DistVector.from_global(I.w, be)
-        ms, nk, share, largest = busy(lambda: cached_pass(parts, z, w, I.n))
-        rec = {k_: round(v, 4) if isinstance(v, float) else v
-               for k_, v in out.items()}
-        rec.update(phase_s=round(t, 2),
-                   cached_pass_device_ms=None if ms is None else round(ms, 3),
-                   cached_pass_launches=nk,
-                   cached_pass_busy_share=None if share is None
-                   else round(share, 4),
-                   cached_pass_largest_us=largest)
-        record[f"S{S}"] = rec
-        print(f"  S={S}: {json.dumps(rec)}  [{name}]", flush=True)
-    n = record["launches"] = {k_: f.launches for k_, f in counters.items()}
-    # K1 must have run where a plan gave the Laplacian block the DIA engine
-    dia = any(record[f"S{S}"][e] == "dia" for S in (1, 4)
-              for e in ("k11_engine", "blockdiag_engine"))
-    say(n["ell"] > 0 and n["gather"] > 0 and (n["dia"] > 0 or not dia),
-        f"the assembly launched K2 {n['ell']} times, its gather mode "
-        f"{n['gather']} times, K1 {n['dia']} times (a DIA engine: {dia}) "
-        f"and K3 {n['resident']} times")
-    print(json.dumps(record), flush=True)
-    return record
-
-
-if __name__ == "__main__":
-    main()

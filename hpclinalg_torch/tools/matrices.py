@@ -1,6 +1,6 @@
-"""The test matrices of chip_smoke.py and tools/ell_ab.py, made on the host
-from a seed with numpy and scipy. Imports nothing of the package, so a tool
-that times another checkout's package can load it from this file.
+"""The test matrices of the card tests and the CPU tests, made on the host
+from a seed with numpy and scipy, and the ridge path's constants. Imports
+nothing of the package.
 """
 
 from __future__ import annotations
@@ -100,6 +100,14 @@ def banded_design(m, n, seed, per_row=4, half=48):
                        (lo[:, None] + chosen).reshape(-1), indptr),
                       shape=(m, n))
     return A, rng.standard_normal(m)
+
+
+# the ridge path's regularisation: N = AᵀA + RIDGE_LAMBDA I
+RIDGE_LAMBDA = 1e-2
+# N = A^T A + lambda I has condition number near 3 at this design (1.0e-15
+# relative CG error after 50 steps at 2*10^5 x 4096 in scipy), so the CG
+# iterate must equal the direct solution to this relative tolerance
+RIDGE_CG_RTOL = 1e-11
 
 
 def random_cols(m, n, per_row, seed):

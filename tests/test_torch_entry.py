@@ -9,7 +9,7 @@ seeded SPD matrix off the DIA path (a permuted laplace2d(24) with a small
 arrow row, whose 576 entries overflow the ELL width into the COO tail)
 on the densify, ELL, resident and segment engines through their plain
 versions, where the JAX step takes its segment sum. The raw step also
-goes against the public-API CG (``tools/ell_ab.cg``, rtol 1e-12);
+goes against the public-API CG (``dist_checks.api_cg``, rtol 1e-12);
 ``entry(device="cpu")`` against the JAX ``entry()``; and on 2 and 4 gloo
 ranks (``dist_checks.entry_steps``) every rank's 20 raw steps against the
 stacked rows and the JAX step, with ``capture`` refusing the gloo group.
@@ -40,7 +40,6 @@ from hpclinalg_torch import entry as te
 from hpclinalg_torch.ops import spmv as tspmv
 from hpclinalg_torch.parallel.launch import run_ranks
 from hpclinalg_torch.tools import dist_checks as dc
-from hpclinalg_torch.tools.ell_ab import cg
 from hpclinalg_torch.tools.matrices import laplace2d
 from hpclinalg_torch.utils import graphs
 
@@ -161,7 +160,7 @@ def test_raw_step_against_public_cg(S, engine):
     x, r, p = x0.data, b.data, b.data
     for _ in range(20):
         x, r, p = step(x, r, p)
-    xa, ra = cg(A, b, 20)
+    xa, ra = dc.api_cg(A, b, 20)
     close(x, xa.data, 1e-12)
     close(r, ra.data, 1e-12)
 

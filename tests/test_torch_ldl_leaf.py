@@ -16,8 +16,14 @@ replayed with a new eps bit for bit against the eager kernel; and whole
 device factorizations, f64 on laplace2d(64) and c128 on helmholtz(64),
 against the same factorization on the CPU (which
 ``tests/test_torch_device_solver.py`` and ``test_torch_complex.py`` hold
-against the JAX package) and scipy.
+against the JAX package) and scipy. At the benchmark's size: the c128
+factorization of helmholtz(256) takes the kernel at every leaf, the
+kernel at each of its leaf shapes in the four types against the plain
+recursion on the card, and captured graphs of the kernel and the plain
+recursion at 27,647 blocks of 16 columns and 64 of 32, replayed.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -29,7 +35,7 @@ from hpclinalg_torch.ops import cuda_ldl
 from hpclinalg_torch.solver import device_mf as tdm
 from hpclinalg_torch.tools import dist_checks as dc
 from hpclinalg_torch.tools.matrices import helmholtz, laplace2d
-from hpclinalg_torch.utils import profiling
+from hpclinalg_torch.utils import graphs, profiling
 
 torch.set_num_threads(1)
 
@@ -49,7 +55,7 @@ def recorder_off():
     profiling.reset_trace()
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -376,3 +382,120 @@ def test_device_factorization_against_the_cpu(card, dtype):
     assert "solver.ldl_leaf_plain" not in counts[str(card)]
     assert counts["cpu"].get("solver.ldl_leaf_plain", 0) > 0
     assert "solver.ldl_leaf_kernels" not in counts["cpu"]
+
+
+# ---- the benchmark's size -----------------------------------------------------
+
+LEAF_EPS = 1e-10
+# the replayed cases, (blocks, columns) in c128: helmholtz2d-512's widest
+# level (27,647 fronts of 16 columns) and a 32-column leaf of its upper
+# levels
+LEAF_REPLAYED = [(27647, 16), (64, 32)]
+
+
+def leaf_blocks(B, n, dtype, seed):
+    """B seeded n × n blocks on the card, symmetric with the plain
+    transpose, diagonally dominant with alternating signs; in the first,
+    entry (0, 0) is 1e-14 and its row and column zero, a pivot the clamp
+    takes."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, n, n))
+    if dtype.is_complex:
+        M = M + 1j * rng.standard_normal((B, n, n))
+    M = M + np.swapaxes(M, 1, 2) + 3 * n * np.diag(
+        np.where(np.arange(n) % 2, -1.0, 1.0))
+    M[0, 0, :] = 0
+    M[0, :, 0] = 0
+    M[0, 0, 0] = 1e-14
+    return torch.from_numpy(M).to(dtype=dtype, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def helmholtz256():
+    """ldlt(method="device", spd=False) of helmholtz(256) in c128 on S = 1
+    and its solve, with the host fallback's warning an error, the leaf
+    kernel's launch counter and the recorder's counters set to 0 just
+    before and read just after and each leaf's shape noted as it passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H = helmholtz(256)
+    rng = np.random.default_rng(17)
+    bh = rng.standard_normal(H.shape[0]) + 1j * rng.standard_normal(
+        H.shape[0])
+    be = ht.backend_auto(1, dtype=np.complex128, device="cuda")
+    A = ht.DistSparseMatrix.from_scipy(H, be)
+    b = ht.DistVector.from_global(bh, be)
+    leaf, shapes = tdm._ldl_leaf, set()
+
+    def noted(F, *args):
+        shapes.add((int(np.prod(F.shape[:-2])), F.shape[-1]))
+        return leaf(F, *args)
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error",
+                                message="device multifrontal unavailable")
+        cuda_ldl.ldl_leaf.launches = 0
+        profiling.reset_trace()
+        profiling.tracing(True)
+        with dc.patched(tdm, _ldl_leaf=noted):
+            F = ht.ldlt(A, method="device", spd=False)
+            x = F.solve(b).to_numpy()
+        torch.cuda.synchronize()
+        profiling.tracing(False)
+    out = {"counters": profiling.trace_report()["counters"],
+           "launches": cuda_ldl.ldl_leaf.launches, "shapes": sorted(shapes),
+           "device": isinstance(F, tdm.DeviceFactorization),
+           "residual": np.linalg.norm(H @ x - bh) / np.linalg.norm(bh)}
+    profiling.reset_trace()
+    del F
+    ht.clear_plan_cache("device_mf")
+    return out
+
+
+@pytest.mark.card
+def test_helmholtz_factorization_takes_the_kernel_at_every_leaf(
+        helmholtz256):
+    """Its launches equal ``solver.ldl_leaf_kernels``; no leaf takes the
+    plain recursion; residual <= 1e-10."""
+    got = helmholtz256
+    assert got["device"] and got["launches"] > 0
+    assert got["launches"] == got["counters"].get("solver.ldl_leaf_kernels")
+    assert "solver.ldl_leaf_plain" not in got["counters"]
+    assert got["residual"] <= 1e-10
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_at_each_leaf_shape_of_helmholtz(card, helmholtz256, dtype):
+    """The kernel at every leaf shape of that factorization against the
+    plain recursion on the card: L and d within RTOL of their largest
+    entry (at least 1 here), the same clamped pivots, a unit diagonal and
+    zeros above it."""
+    for i, (B, n) in enumerate(helmholtz256["shapes"]):
+        F = leaf_blocks(B, n, dtype, 17 + i)
+        eps = torch.full((), LEAF_EPS, dtype=dtype.to_real(), device=card)
+        want = tuple(t.cpu() for t in tdm._ldl_plain(F, eps))
+        check_leaf(cuda_ldl.ldl_leaf(F, eps), want, dtype)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B, n", LEAF_REPLAYED)
+def test_captured_kernel_equals_the_captured_plain_recursion(card, B, n):
+    """The kernel and the plain recursion, each captured as a CUDA graph
+    (as the factor graph holds them) and replayed, in c128: L and d within
+    1e-12, the same clamped pivots."""
+    F = leaf_blocks(B, n, torch.complex128, 170 + n)
+    eps = torch.full((), LEAF_EPS, dtype=torch.float64, device=card)
+    got = []
+    for fn in (lambda: cuda_ldl.ldl_leaf(F, eps),
+               lambda: tdm._ldl_plain(F, eps)):
+        fn()
+        torch.cuda.synchronize()
+        g, out, _ = graphs.record(fn, card)
+        g.replay()
+        got.append(out)
+    torch.cuda.synchronize()
+    (Lk, dk, pk), (Lp, dp, pp) = got
+    close(Lk, Lp, RTOL[torch.complex128])
+    close(dk, dp, RTOL[torch.complex128])
+    assert int(pk) == int(pp)

@@ -8,12 +8,12 @@ last-bit differences in the reductions a little each step). The port's
 step uses only the public API. Then ``ldlt(A).solve(b)`` of both agree to
 1e-10.
 
-The second path is the sparse ridge regression of ``chip_smoke.py`` cut to
+The second path is the sparse ridge regression of the card tests cut to
 m = 20,000 observations and n = 512 unknowns, from the same generator:
 At = A.T.materialize(), N = (At @ A).add_identity(lambda), rhs = At @ b, CG
 on N, ldlt(N).solve(rhs) and A @ x, through both packages and scipy.
 
-The third is the multi-response ridge of ``chip_smoke.py`` phase 8 at the
+The third is the multi-response ridge of the card tests at the
 same cut size with eight responses: R = At @ Y, Xh = solve(N, R), N @ Xh,
 Xh.T @ Xh and A @ Xh - Y."""
 
@@ -29,7 +29,8 @@ import hpclinalg_torch as ht
 import hpclinalg_torch.ops.cuda_ell_resident as tk3
 import hpclinalg_torch.ops.spmv as tspmv
 from __graft_entry__ import _cg_step_fn, _laplace2d
-from chip_smoke import RIDGE_CG_RTOL, RIDGE_LAMBDA, banded_design
+from hpclinalg_torch.tools.matrices import (RIDGE_CG_RTOL, RIDGE_LAMBDA,
+                                            banded_design)
 
 torch.set_num_threads(1)
 
@@ -173,9 +174,10 @@ def test_ridge_path_matches_reference(S, monkeypatch):
 @pytest.mark.parametrize("S", [1, 4])
 def test_multi_response_ridge_matches_reference(S, monkeypatch):
     """The dense slice as a whole: the multi-response ridge of
-    ``chip_smoke.py`` phase 8, cut to m = 20,000 and n = 512 with k = 8
-    responses. R = At @ Y (SpMM on the ELL engine, densify off as in the
-    ridge test above), Xh = solve(N, R) from the host multi-RHS sweep,
+    ``tests/test_torch_card_algebra.py``, cut to m = 20,000 and n = 512
+    with k = 8 responses. R = At @ Y (SpMM on the ELL engine, densify off
+    as in the ridge test above), Xh = solve(N, R) from the host multi-RHS
+    sweep,
     N @ Xh, Xh.T @ Xh and A @ Xh - Y through both packages and scipy."""
     m, n, k = 20_000, 512, 8
     A, _ = banded_design(m, n, seed=8)
@@ -234,7 +236,7 @@ def _cg(A, b, steps):
 
 @pytest.mark.parametrize("S", [1, 4])
 def test_kkt_assembly(S, tmp_path):
-    """The saddle-point assembly of chip_smoke.py phase 10 at k = 12,
+    """The saddle-point assembly of ``tools/kkt.py`` at k = 12,
     m = 30: every step held against scipy by ``kkt.drive`` itself, and the
     assembled, sliced and edited K against the JAX package's (structure,
     hash and values bit for bit)."""
