@@ -21,7 +21,11 @@ staying distributed):
   * **Top phase**: the top tree is factored replicated.
   * **Solves** run the same wave schedule on inverted diagonal blocks, with
     the right-hand side moved in and the solution moved out by two
-    ``ExchangePlan``s.
+    ``ExchangePlan``s. One buffer carries the right-hand side, z and x: a
+    level's step overwrites its fronts' rows and adds into its ancestors'.
+    On the card a level's step of a sweep is one hand-written kernel
+    (``ops/cuda_front_solve.py``) wherever its products are bound by bytes
+    or latency; elsewhere its plain version.
 
 Kinds: "chol" (SPD), "ldl" (symmetric or complex-symmetric indefinite,
 unpivoted LDLᵀ with static-pivot perturbation) and "lu" (unsymmetric on the
@@ -67,7 +71,7 @@ import torch
 
 from ..backend import numpy_dtype, torch_dtype
 from ..config import round_up
-from ..ops import cuda_ldl
+from ..ops import cuda_front_solve, cuda_ldl
 from ..ops.cuda_ell import check_index
 from ..parallel import comm
 from ..utils import graphs
@@ -294,6 +298,32 @@ def _front_kernel(kind, F, NC, eps):
 
 
 # ---------------------------------------------------------------------------
+# one level's solve step, plain: ``ops/cuda_front_solve.py``'s plain version.
+# y (S, rows, k) holds the right-hand side, z and x in place; its last row
+# is the sentinel slot, which the padding of ccol and crow points at and
+# which is zero again after each step.
+# ---------------------------------------------------------------------------
+
+def _fwd_plain(y, ccol, crow_add, crow_live, A, M, d=None):
+    """The forward step: w = A y[ccol], y[ccol] = w / d (or w), y[crow]
+    −= M w (``crow_add``: crow flattened over the shards, masked by
+    ``crow_live``)."""
+    ar = torch.arange(y.shape[0], device=y.device)[:, None, None]
+    w = A @ y[ar, ccol]
+    y[ar, ccol] = w if d is None else w / d[..., :, None]
+    y.view(-1, y.shape[-1]).index_add_(0, crow_add, torch.where(
+        crow_live, -(M @ w), 0).view(-1, y.shape[-1]))
+    y[:, -1] = 0
+
+
+def _bwd_plain(y, ccol, crow, A, M):
+    """The backward step: y[ccol] = A (y[ccol] − M y[crow])."""
+    ar = torch.arange(y.shape[0], device=y.device)[:, None, None]
+    y[ar, ccol] = A @ (y[ar, ccol] - M @ y[ar, crow])
+    y[:, -1] = 0
+
+
+# ---------------------------------------------------------------------------
 # plan construction (host, cached per structural hash)
 # ---------------------------------------------------------------------------
 
@@ -303,9 +333,11 @@ class _Level:
     point their padding at the sentinel slot B·NF·NF. ``crow_add`` is
     ``crow`` flattened over the shards for the solve's scatter-add, its
     padding spread over the real slots, where ``crow_live`` masks the
-    values to zero."""
+    values to zero. ``ncol`` and ``nrow`` (int32) count each front's live
+    columns and update rows: the prefixes of ``ccol`` and ``crow`` that
+    are not the sentinel."""
     __slots__ = ("B", "NC", "NF", "a_src", "a_dst", "diag", "ea", "ea_cross",
-                 "ccol", "crow", "crow_add", "crow_live")
+                 "ccol", "crow", "crow_add", "crow_live", "ncol", "nrow")
 
     def __init__(self):
         self.ea = []        # (child_level, srcb, dstb, psl)
@@ -732,6 +764,18 @@ class DeviceMF:
             m.crow_add = self._dev("crow_add", (base + add).reshape(-1),
                                    base.size * hi)
             m.crow_live = self.backend.tensor(live[..., None])
+            # the kernel's live counts: a front's live columns and update
+            # rows come first, its padding after them
+            livec = cc != hi - 1
+            ncol, nrow = livec.sum(-1), live.sum(-1)
+            if not (np.array_equal(livec, np.arange(m.NC) < ncol[..., None])
+                    and np.array_equal(live, np.arange(m.NF - m.NC)
+                                       < nrow[..., None])):
+                raise AssertionError("device_mf: a front's live columns or "
+                                     "update rows are not a prefix of its "
+                                     "padded ones")
+            m.ncol = self.backend.tensor(ncol.astype(np.int32))
+            m.nrow = self.backend.tensor(nrow.astype(np.int32))
 
         # -- finalize static tables -------------------------------------------
         for l, m in enumerate(self.local_levels):
@@ -990,61 +1034,82 @@ class DeviceMF:
         Ui = torch.linalg.solve_triangular(fac[1], eye, upper=True)
         return (Li, Ui) + tuple(fac[2:])
 
-    def _fwd(self, fac, seg, tr=False):
-        """seg (..., NC, k) -> (z stored for backward, w for updates); fac
-        carries INVERTED diagonal blocks. ``tr`` solves the transposed
-        system (LU only: Aᵀ = Uᵀ Lᵀ, forward uses Uᵀ)."""
+    def _fwd_ops(self, fac, tr=False):
+        """The forward step's operands of one level's factor tuple (inverted
+        diagonal blocks): (A, M, d) with w = A b, z = w / d (w where d is
+        None) and the update M w. ``tr`` solves the transposed system (LU
+        only: Aᵀ = Uᵀ Lᵀ, forward with Uᵀ)."""
         if self.kind == "ldl":
-            w = fac[0] @ seg
-            return w / fac[1][..., :, None], w
-        if self.kind == "lu" and tr:  # Uᵀ z = b -> z = (U^-1)ᵀ b
-            w = fac[1].mT @ seg
-            return w, w
-        w = fac[0] @ seg
-        return w, w
+            return fac[0], fac[2], fac[1]
+        if self.kind == "lu" and tr:   # Uᵀ z = b -> z = (U^-1)ᵀ b
+            return fac[1].mT, fac[3].mT, None
+        return fac[0], (fac[2] if self.kind == "lu" else fac[1]), None
 
-    def _bwd(self, fac, rhs, xr, tr=False):
-        """rhs is the stored z segment; xr (..., NR, k) the ancestor
-        solution rows. ``tr`` (LU only): backward with Lᵀ (unit)."""
+    def _bwd_ops(self, fac, tr=False):
+        """The backward step's operands: (A, M) with x = A (z − M xr), xr the
+        ancestor solution rows. ``tr`` (LU only): backward with Lᵀ (unit)."""
         if self.kind == "lu" and not tr:
-            _Li, Ui, _L21, U12 = fac
-            return Ui @ (rhs - U12 @ xr)
+            return fac[1], fac[3]
         # Lᵀ x = z - L21ᵀ xr with L^-1 stored: chol, ldl and LU transposed
-        L21 = fac[2] if self.kind == "lu" else fac[-1]
-        return fac[0].mT @ (rhs - L21.mT @ xr)
+        return fac[0].mT, (fac[2] if self.kind == "lu" else fac[-1]).mT
 
-    def _l21(self, fac, tr=False):
-        if self.kind != "lu":
-            return fac[-1]
-        if tr:  # Uᵀ off-block: U12ᵀ (NR, NC)
-            return fac[3].mT
-        return fac[2]
+    @staticmethod
+    def _tables(m, top):
+        """A level's solve tables with the shard axis (one for a top
+        level): ccol, crow, crow_add, crow_live, ncol, nrow."""
+        t = (m.ccol, m.crow, m.crow_add, m.crow_live, m.ncol, m.nrow)
+        return tuple(x[None] if top and x is not m.crow_add else x
+                     for x in t)
+
+    def _fwd_step(self, m, fac, y, tr, top=False):
+        """One level's forward step on y (S, rows, k) in place (a top
+        level's on ytop[None]): one ``front_fwd`` launch where
+        ``cuda_front_solve.front_route`` takes the level
+        (``solver.front_steps_kernel``), else ``_fwd_plain``
+        (``solver.front_steps_plain``)."""
+        A, M, d = self._fwd_ops(fac, tr)
+        if top:
+            A, M, d = A[None], M[None], None if d is None else d[None]
+        ccol, crow, crow_add, crow_live, ncol, nrow = self._tables(m, top)
+        if cuda_front_solve.front_route(y.device, y.dtype, m.NC, m.NF,
+                                        y.shape[-1]):
+            count("solver.front_steps_kernel")
+            cuda_front_solve.front_fwd(y, ccol, crow, ncol, nrow, A, M, d)
+            return
+        count("solver.front_steps_plain")
+        _fwd_plain(y, ccol, crow_add, crow_live, A, M, d)
+
+    def _bwd_step(self, m, fac, y, tr, top=False):
+        """One level's backward step on y in place: one ``front_bwd``
+        launch or ``_bwd_plain``, as ``_fwd_step`` decides."""
+        A, M = self._bwd_ops(fac, tr)
+        if top:
+            A, M = A[None], M[None]
+        ccol, crow, _add, _live, ncol, nrow = self._tables(m, top)
+        if cuda_front_solve.front_route(y.device, y.dtype, m.NC, m.NF,
+                                        y.shape[-1]):
+            count("solver.front_steps_kernel")
+            cuda_front_solve.front_bwd(y, ccol, crow, ncol, nrow, A, M)
+            return
+        count("solver.front_steps_plain")
+        _bwd_plain(y, ccol, crow, A, M)
 
     def _solve_impl(self, loc_factors, top_factors, bloc, tr=False):
         # bloc: (S, SVPAD, k) — the in_plan gather of the row-distributed
         # RHS into the per-shard compact spaces (local columns at [0, M_s),
         # the replicated top copy at [Mmax, Mmax+TOPM) on shard 0 only);
-        # (1, SVPAD, k), this process's shard, on a group
+        # (1, SVPAD, k), this process's shard, on a group. One buffer y
+        # (and ytop for the top tree) carries b, z and x in place.
         dt = self.dtype
         S = self.backend.nlocal
-        SENT = self.SVPAD          # sentinel slot, kept zero
         TOPM, Mmax = self.TOPM, self.Mmax
         k = bloc.shape[2]
+        # the last row is the sentinel slot, kept zero
         y = torch.cat([bloc.to(dt), bloc.new_zeros((S, 1, k), dtype=dt)], 1)
-        contrib = torch.zeros_like(y)
-        zloc = torch.zeros_like(y)
-        ar = torch.arange(S, device=self.device)[:, None, None]
 
         # forward, local phase (compact per-shard spaces)
         for m, fac in zip(self.local_levels, loc_factors):
-            ccol = m.ccol
-            seg = y[ar, ccol] + contrib[ar, ccol]      # (S, B, NC, k)
-            z, w = self._fwd(fac, seg, tr)
-            zloc[ar, ccol] = z
-            upd = self._l21(fac, tr) @ w
-            contrib.view(-1, k).index_add_(0, m.crow_add, torch.where(
-                m.crow_live, -upd, 0).view(-1, k))
-            zloc[:, SENT] = 0
+            self._fwd_step(m, fac, y, tr)
 
         # forward, top phase: ONE cross-shard reduction of the compact top
         # region (b_top rides shard 0's slice; others carry only updates),
@@ -1052,20 +1117,13 @@ class DeviceMF:
         ytop = torch.zeros((TOPM + 1, k), dtype=dt, device=self.device)
         if TOPM:
             ytop[:TOPM] = comm.all_reduce(
-                self.backend, (y + contrib)[:, Mmax: Mmax + TOPM].sum(dim=0))
+                self.backend, y[:, Mmax: Mmax + TOPM].sum(dim=0))
         for m, fac in zip(self.top_levels, top_factors):
-            z, w = self._fwd(fac, ytop[m.ccol], tr)
-            ytop[m.ccol] = z
-            upd = self._l21(fac, tr) @ w
-            ytop.index_add_(0, m.crow_add, torch.where(
-                m.crow_live, -upd, 0).view(-1, k))
-            ytop[TOPM] = 0
+            self._fwd_step(m, fac, ytop[None], tr, top=True)
 
         # backward, top phase (replicated compute on the compact top space)
         for m, fac in zip(reversed(self.top_levels), reversed(top_factors)):
-            x = self._bwd(fac, ytop[m.ccol], ytop[m.crow], tr)
-            ytop[m.ccol] = x
-            ytop[TOPM] = 0
+            self._bwd_step(m, fac, ytop[None], tr, top=True)
         xtop = torch.zeros_like(ytop)
         if self.n_topcols:
             tc = self.topcols
@@ -1073,15 +1131,12 @@ class DeviceMF:
 
         # backward, local phase: every shard carries the top solution copy
         # in its [Mmax, Mmax+TOPM) region
-        xloc = torch.zeros_like(y)
         if TOPM:
-            xloc[:, Mmax: Mmax + TOPM] = xtop[:TOPM]
+            y[:, Mmax: Mmax + TOPM] = xtop[:TOPM]
         for m, fac in zip(reversed(self.local_levels), reversed(loc_factors)):
-            x = self._bwd(fac, zloc[ar, m.ccol], xloc[ar, m.crow], tr)
-            xloc[ar, m.ccol] = x
-            xloc[:, SENT] = 0
+            self._bwd_step(m, fac, y, tr)
 
-        return xloc  # (S, SENT+1, k); out_plan scatters to natural order
+        return y  # (S, SENT+1, k); out_plan scatters to natural order
 
     def solve_prepped(self, prepped, b, tr: bool = False):
         """b (S, Lrow, k) on ``self.row_partition`` -> the solution stacked

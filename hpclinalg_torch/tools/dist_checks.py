@@ -955,22 +955,29 @@ CG_LAUNCH_COUNTERS = ("cg_dots", "cg_update_xr", "cg_update_p")
 # the device LDLᵀ's leaf kernel (ops/cuda_ldl.py), which only a device
 # factorization with spd=False launches
 LDL_LAUNCH_COUNTERS = ("ldl_leaf",)
+# the device solver's level steps (ops/cuda_front_solve.py), which every
+# device solve launches
+FRONT_LAUNCH_COUNTERS = ("front_fwd", "front_bwd")
 
 
 def _launchers() -> dict:
-    from ..ops import cuda_cg, cuda_dia, cuda_ell, cuda_ell_resident, cuda_ldl
+    from ..ops import (cuda_cg, cuda_dia, cuda_ell, cuda_ell_resident,
+                       cuda_front_solve, cuda_ldl)
 
     return {"dia": cuda_dia.dia_spmv, "ell": cuda_ell.ell_spmv,
             "gather": cuda_ell.gather,
             "resident": cuda_ell_resident.ell_resident_spmv,
             **{k: getattr(cuda_cg, k) for k in CG_LAUNCH_COUNTERS},
-            **{k: getattr(cuda_ldl, k) for k in LDL_LAUNCH_COUNTERS}}
+            **{k: getattr(cuda_ldl, k) for k in LDL_LAUNCH_COUNTERS},
+            **{k: getattr(cuda_front_solve, k)
+               for k in FRONT_LAUNCH_COUNTERS}}
 
 
 def launch_counts() -> dict:
     """The kernels' launch counters: K1, K2, K2's gather mode, K3
-    (``LAUNCH_COUNTERS``), the CG step's three (``CG_LAUNCH_COUNTERS``) and
-    the device LDLᵀ's leaf (``LDL_LAUNCH_COUNTERS``)."""
+    (``LAUNCH_COUNTERS``), the CG step's three (``CG_LAUNCH_COUNTERS``),
+    the device LDLᵀ's leaf (``LDL_LAUNCH_COUNTERS``) and the device
+    solve's level steps (``FRONT_LAUNCH_COUNTERS``)."""
     return {k: f.launches for k, f in _launchers().items()}
 
 

@@ -16,21 +16,23 @@ import numpy as np
 import scipy.sparse as sp
 
 KERNEL_SOURCES = ("dia_spmv", "ell_spmv", "ell_resident_spmv", "dia_probe",
-                  "kpayload", "cg_vec", "ldl_leaf")
+                  "kpayload", "cg_vec", "ldl_leaf", "front_solve")
 
 
 def build_kernels() -> None:
     """Build and load every kernel library of ``csrc/`` and bind every
     entry point (K1-K3 in f32, f64, c64 and c128, the CG step's vector
-    kernels in f32 and f64, the device LDLᵀ's leaf in all four); raises
-    when a build fails or an entry point is missing."""
+    kernels in f32 and f64, the device LDLᵀ's leaf and the device solve's
+    level steps in all four); raises when a build fails or an entry point
+    is missing."""
     from ..ops import (cuda_build, cuda_cg, cuda_dia, cuda_dia_probe,
-                       cuda_ell, cuda_ell_resident, cuda_kpayload, cuda_ldl)
+                       cuda_ell, cuda_ell_resident, cuda_front_solve,
+                       cuda_kpayload, cuda_ldl)
 
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(cuda_build.load_kernel_lib, KERNEL_SOURCES))
     for mod in (cuda_dia, cuda_ell, cuda_ell_resident, cuda_dia_probe,
-                cuda_kpayload, cuda_cg, cuda_ldl):
+                cuda_kpayload, cuda_cg, cuda_ldl, cuda_front_solve):
         mod._lib()
 
 

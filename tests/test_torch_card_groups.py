@@ -239,7 +239,8 @@ def test_device_solver(card, solver_refs, group, transport, world):
             name = key[len("sol."):].rsplit(".", 1)[0]
             close(out[key], want, 1e-12 if name in SUMMED else 1e-10)
         assert all(int(out[f"sol.launches.{k}"]) >= 1
-                   for k in dc.LAUNCH_COUNTERS + dc.LDL_LAUNCH_COUNTERS)
+                   for k in dc.LAUNCH_COUNTERS + dc.LDL_LAUNCH_COUNTERS
+                   + dc.FRONT_LAUNCH_COUNTERS)
     refusals = {str(r[f"sol.{kind}.refusal"]) for r in ranks
                 for kind in FACTORIZATIONS}
     if transport == "nccl":
